@@ -1,0 +1,64 @@
+"""gsplat_tpu_torch — the PyTorch/CUDA port of ``gsplat_tpu`` for one NVIDIA
+H100: a differentiable 3D Gaussian-splat renderer (EWA-projected
+screen-space Gaussians, SH color of degree 0-3, global depth sort, tile
+binning, front-to-back alpha compositing).
+
+The package mirrors the JAX package's layout and public names, so the
+counterpart of a module is found by its path.  It imports ``torch`` and
+numpy, never ``jax`` and nothing of ``gsplat_tpu``.  Plain tensor code is
+PyTorch; each kernel the JAX package wrote in Pallas is a kernel written by
+hand in CUDA C++ under ``csrc/`` (built with ``nvcc`` at first use), with its
+plain PyTorch version beside its wrapper in ``ops/kernels/``.
+
+Device rule: constructors and generators take ``device=None``, which means
+the card (``"cuda"``); ``render`` runs where its splats live.  Nothing falls
+back to the CPU when the card is missing.
+
+This slice covers the forward render (serving).  Training, sharding,
+wireframe, depth test, the scene registry and I/O are later slices.
+"""
+
+from .version import __version__
+from .models.camera import Camera, camera_from_numpy, look_at, make_camera, perspective
+from .models.splats import (
+    GaussianSplats,
+    make_splats,
+    random_splats,
+    splats_from_numpy,
+    to_numpy_dict,
+    trained_like_splats,
+)
+from .utils.config import RenderConfig
+from .ops.binning import RenderStats, report_stats
+from .ops.projection import ProjectedSplats, project_splats
+from .ops.rasterize_ref import render_reference
+from .ops.rasterize_tiles import depth_order, render_tiles
+from .render import composite_over, measure_pairs, render, render_cuda, tune_pair_budget
+
+__all__ = [
+    "render",
+    "render_cuda",
+    "measure_pairs",
+    "tune_pair_budget",
+    "composite_over",
+    "render_tiles",
+    "render_reference",
+    "__version__",
+    "Camera",
+    "make_camera",
+    "camera_from_numpy",
+    "look_at",
+    "perspective",
+    "GaussianSplats",
+    "make_splats",
+    "random_splats",
+    "trained_like_splats",
+    "splats_from_numpy",
+    "to_numpy_dict",
+    "RenderConfig",
+    "RenderStats",
+    "report_stats",
+    "ProjectedSplats",
+    "project_splats",
+    "depth_order",
+]

@@ -1,0 +1,227 @@
+// Compositing forward: one block per 32x32 tile walks the tile's depth-ordered
+// (tile, splat) pair segment front to back.
+//
+// Replaces the forward half of the TPU kernel
+// gsplat_tpu/ops/pallas/composite.py:_fwd_kernel (with _splat_alpha and
+// _pixel_coords), in its variant without transmittance checkpoints, for
+// strides 1 and no depth test or wireframe.  What it computes is the same:
+//
+//   * pixel centres (tx*32 + col + 0.5, ty*32 + row + 0.5);
+//   * pair positions pos in [phi, span) counted from tile_base are the
+//     tile's own; the lanes before phi and from span on belong to the
+//     neighbouring tiles and are never read;
+//   * alpha = min(exp(-(qx^2 + qy^2)) * op, max_alpha); in hard mode also
+//     qx^2 <= 4, qy^2 <= 4 and alpha >= 1/255, else 0;
+//   * acc += (alpha * T) * c;  T *= (1 - alpha), one multiply per pair in
+//     pair order; the alpha channel is 1 - T;
+//   * the early stop sits on the chunk grid counted from tile_base (NOT from
+//     the segment's first pair): after each `chunk` positions the tile stops
+//     iff every one of its 1024 pixels (those beyond the image edge
+//     included) has T <= t_eps.  A pixel whose own T is already below t_eps
+//     keeps accumulating until the whole tile stops;
+//   * used[t] = min(span, chunks_walked * chunk).
+//
+// What differs from the TPU design, and why.  The TPU kernel needed a
+// (rows, P_pad) pair payload materialised by a gather beforehand, because it
+// cannot gather per pair; here each block reads pair_splat[j] and then
+// column pair_splat[j] of the per-splat matrix itself, so the gather is part
+// of this function and the pair payload never exists in device memory.  The
+// (8, 128) register packing of a tile, the zero rows that pad the payload to
+// 16, and int32 transport against denormal flushing have no counterpart: a
+// packed word is bit-cast with __int_as_float, and the image is written as
+// (H, W, 4) float with the ragged right and bottom tiles masked.
+//
+// Layout of a block: 256 threads; thread t owns column t % 32 and rows
+// t / 32 + {0, 8, 16, 24}, so a warp writes 32 neighbouring float4 pixels.
+// Per chunk the threads first read the chunk's pair indices, then the
+// payload words of those splats, into shared memory; after a barrier every
+// thread composites the chunk's pairs in order, reading each pair's words as
+// a shared-memory broadcast; __syncthreads_or is the tile-wide vote.
+//
+// What bounds it: operations.  Every live pair costs 1024 pixel updates of
+// about 30 float instructions plus one expf each, against 32 to 40 bytes of
+// payload, so the float/exp issue rate and the per-pair shared-memory
+// broadcast (8 to 10 words per pair per warp) bound it, not device memory.
+// The payload read is a scattered 4-byte read per row (rows are N apart),
+// which wastes most of each 32-byte sector; with all blocks of an SM
+// overlapping each other's loads this stays behind the arithmetic.
+//
+// Floating point.  The result is held against a sequence of separately
+// rounded PyTorch ops across two hard thresholds (alpha >= 1/255, q^2 <= 4),
+// where a one-ulp difference flips a pixel's contribution by up to about
+// 4e-3.  So this file is compiled with -fmad=false (no a*b+c contraction),
+// uses expf and not __expf, and never fast math.  That costs roughly the
+// share of multiply-add pairs that could have been fused (about a third of
+// the float instructions here); lifting it means accepting threshold flips
+// against the plain version, and is a later decision.
+//
+// Plain C interface: nothing is allocated or synchronised here, and the
+// entry returns cudaGetLastError() after its launch.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TILE = 32;
+constexpr int THREADS = 256;
+constexpr int PIX = 4;  // pixels per thread: rows r0, r0+8, r0+16, r0+24
+
+template <bool PACKED, bool SOFT>
+__global__ void __launch_bounds__(THREADS)
+composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit words
+                     long long n_cols,
+                     const int* __restrict__ pair_splat,
+                     const int* __restrict__ tile_base,
+                     const int* __restrict__ tile_phi,
+                     const int* __restrict__ tile_span,
+                     float* __restrict__ image,  // (height, width, 4)
+                     int* __restrict__ used,     // (num_tiles,)
+                     int ntx, int height, int width, int chunk,
+                     float max_alpha, float t_eps) {
+    constexpr int ROWS = PACKED ? 8 : 10;
+    extern __shared__ int smem[];
+    int* s_idx = smem;          // [chunk]
+    int* s_pay = smem + chunk;  // [ROWS][chunk]
+
+    const int t = blockIdx.x;
+    const int ty = t / ntx;
+    const int tx = t - ty * ntx;
+    const int base = tile_base[t];
+    const int phi = tile_phi[t];
+    const int span = tile_span[t];
+    const int tid = threadIdx.x;
+    const int col = tid & (TILE - 1);
+    const int row0 = tid >> 5;
+
+    const float alpha_cutoff = (float)(1.0 / 255.0);
+    const float px = (float)(tx * TILE + col) + 0.5f;
+    float py[PIX], T[PIX], acc_r[PIX], acc_g[PIX], acc_b[PIX];
+#pragma unroll
+    for (int k = 0; k < PIX; ++k) {
+        py[k] = (float)(ty * TILE + row0 + 8 * k) + 0.5f;
+        T[k] = 1.0f;
+        acc_r[k] = 0.0f;
+        acc_g[k] = 0.0f;
+        acc_b[k] = 0.0f;
+    }
+
+    const int nchunks = (span + chunk - 1) / chunk;
+    int ci = 0;
+    while (ci < nchunks) {
+        const int c0 = ci * chunk;
+        const int lo = max(c0, phi);
+        const int hi = min(c0 + chunk, span);
+        const int cnt = hi - lo;  // >= 1: phi < chunk and span > phi
+
+        for (int i = tid; i < cnt; i += THREADS) s_idx[i] = pair_splat[(long long)base + lo + i];
+        __syncthreads();
+        for (int w = tid; w < cnt * ROWS; w += THREADS) {
+            const int r = w / cnt;
+            const int i = w - r * cnt;
+            s_pay[r * chunk + i] = fields[(long long)r * n_cols + s_idx[i]];
+        }
+        __syncthreads();
+
+        for (int i = 0; i < cnt; ++i) {
+            const float cx = __int_as_float(s_pay[0 * chunk + i]);
+            const float cy = __int_as_float(s_pay[1 * chunk + i]);
+            const float ax = __int_as_float(s_pay[2 * chunk + i]);
+            const float ay = __int_as_float(s_pay[3 * chunk + i]);
+            const float bx = __int_as_float(s_pay[4 * chunk + i]);
+            const float by = __int_as_float(s_pay[5 * chunk + i]);
+            float cr, cg, cb, op;
+            if (PACKED) {
+                const int w6 = s_pay[6 * chunk + i];
+                const int w7 = s_pay[7 * chunk + i];
+                cr = __int_as_float(w6 & (int)0xffff0000u);
+                cg = __int_as_float(w6 << 16);
+                cb = __int_as_float(w7 & (int)0xffff0000u);
+                op = __int_as_float(w7 << 16);
+            } else {
+                cr = __int_as_float(s_pay[6 * chunk + i]);
+                cg = __int_as_float(s_pay[7 * chunk + i]);
+                cb = __int_as_float(s_pay[8 * chunk + i]);
+                op = __int_as_float(s_pay[9 * chunk + i]);
+            }
+            const float dx = px - cx;
+            const float dxax = dx * ax;
+            const float dxbx = dx * bx;
+#pragma unroll
+            for (int k = 0; k < PIX; ++k) {
+                const float dy = py[k] - cy;
+                const float qx = dxax + dy * ay;
+                const float qy = dxbx + dy * by;
+                const float qx2 = qx * qx;
+                const float qy2 = qy * qy;
+                const float power = qx2 + qy2;
+                const float a = expf(-power) * op;
+                // NaN-preserving min, as the plain version's torch.minimum
+                float alpha = (a > max_alpha) ? max_alpha : a;
+                if (!SOFT) {
+                    const bool keep = (qx2 <= 4.0f) && (qy2 <= 4.0f) && (alpha >= alpha_cutoff);
+                    alpha = keep ? alpha : 0.0f;
+                }
+                const float w = alpha * T[k];
+                acc_r[k] = acc_r[k] + w * cr;
+                acc_g[k] = acc_g[k] + w * cg;
+                acc_b[k] = acc_b[k] + w * cb;
+                T[k] = T[k] * (1.0f - alpha);
+            }
+        }
+        ++ci;
+        const float tmax = fmaxf(fmaxf(T[0], T[1]), fmaxf(T[2], T[3]));
+        // Tile-wide vote; also the barrier that frees shared memory for the
+        // next chunk.
+        if (!__syncthreads_or(tmax > t_eps)) break;
+    }
+
+    const int x = tx * TILE + col;
+    if (x < width) {
+#pragma unroll
+        for (int k = 0; k < PIX; ++k) {
+            const int y = ty * TILE + row0 + 8 * k;
+            if (y < height) {
+                float4* dst = reinterpret_cast<float4*>(image) + ((long long)y * width + x);
+                *dst = make_float4(acc_r[k], acc_g[k], acc_b[k], 1.0f - T[k]);
+            }
+        }
+    }
+    if (tid == 0) used[t] = min(span, ci * chunk);
+}
+
+}  // namespace
+
+// fields: (10, n_cols) float32 rows [cx cy ax ay bx by r g b op], or with
+// packed != 0 (8, n_cols) int32 rows [cx cy ax ay bx by (r,g) (b,op)], the
+// first six bit-cast float32 and the last two holding two bf16 halves.
+// image: (height, width, 4) float32, 16-byte aligned; used: (nty*ntx,) int32.
+extern "C" int gsplat_composite_fwd(const void* fields, long long n_cols, int packed, int soft,
+                                    const void* pair_splat, const void* tile_base,
+                                    const void* tile_phi, const void* tile_span, void* image,
+                                    void* used, int nty, int ntx, int height, int width,
+                                    int chunk, float max_alpha, float t_eps, void* stream) {
+    const int num_tiles = nty * ntx;
+    if (num_tiles <= 0) return 0;
+    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+    const int rows = packed ? 8 : 10;
+    const size_t shmem = (size_t)(rows + 1) * chunk * sizeof(int);
+    if (shmem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    const int* f = static_cast<const int*>(fields);
+    const int* ps = static_cast<const int*>(pair_splat);
+    const int* tb = static_cast<const int*>(tile_base);
+    const int* tp = static_cast<const int*>(tile_phi);
+    const int* ts = static_cast<const int*>(tile_span);
+    float* im = static_cast<float*>(image);
+    int* u = static_cast<int*>(used);
+#define GSPLAT_LAUNCH(P, S)                                                              \
+    composite_fwd_kernel<P, S><<<num_tiles, THREADS, shmem, s>>>(                        \
+        f, n_cols, ps, tb, tp, ts, im, u, ntx, height, width, chunk, max_alpha, t_eps)
+    if (packed) {
+        if (soft) GSPLAT_LAUNCH(true, true); else GSPLAT_LAUNCH(true, false);
+    } else {
+        if (soft) GSPLAT_LAUNCH(false, true); else GSPLAT_LAUNCH(false, false);
+    }
+#undef GSPLAT_LAUNCH
+    return (int)cudaGetLastError();
+}

@@ -1,0 +1,498 @@
+"""Tile binning: (tile, splat) pair expansion with static shapes
+(counterpart of ``gsplat_tpu.ops.binning``).
+
+The screen is cut into tiles and each splat is expanded into one
+(tile, splat) pair per overlapped tile:
+
+  1. per-splat tile-bbox from the precomputed quad footprint half-extents
+     (``ops/projection.py`` rows 12-13);
+  2. pair offsets by a prefix sum; pair→splat lookup by a scatter-max of the
+     rank at each offset followed by a prefix max, over a fixed pair budget
+     (ragged→static) — the two prefix scans are the scan kernel
+     (``ops/kernels/scan.py``);
+  3. one sort by tile id — splats are already in global depth order, so the
+     packed (tile, rank) key yields per-tile front-to-back order;
+  4. **no re-layout**: the sorted pair order IS the final layout.  Each
+     tile's segment ``[start, start+count)`` is described to the compositor
+     by its chunk-aligned base ``base = start − φ`` and lead phase
+     ``φ = start mod chunk``; the early-stop test of the compositor sits on
+     that chunk grid, so the descriptors are part of the image contract.
+
+     ``grad_base`` lays out the separate gradient address space of the
+     backward pass (one chunk-aligned region per tile, sized from the *raw*
+     per-tile counts); it is O(T) and computed now, while the expansion-order
+     gradient map (``with_grad_map=True``) belongs to the training slice.
+
+Overflow policy: pairs beyond the budget and per-tile entries beyond
+``tile_capacity`` drop the *farthest* splats; the dropped count is reported
+so callers can warn.
+
+All integer arrays are int32 and equal the JAX package's bit for bit on the
+same sorted, sanitized fields (``tests/test_torch_binning.py``).  Nothing
+here reads a value back to the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..utils.config import RenderConfig
+from ..utils.logging import format_count, get_logger
+from .covariance import ALPHA_CUTOFF, QUAD_EXTENT
+from .kernels.scan import scan_i32
+from .projection import (
+    ROW_CX,
+    ROW_CY,
+    ROW_HX,
+    ROW_HY,
+    ROW_OP,
+    ROW_VALID,
+    ProjectedSplats,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class BinnedPairs:
+    """Static-shape binning result (pairs stay in tile-sorted order).
+
+    ``pair_splat[k]``: payload-column index of the k-th pair — a *storage*
+    index when ``bin_splats`` was given ``order``, a depth-rank index
+    otherwise (fields pre-sorted); pairs are grouped by tile (ascending tile
+    id) and front-to-back within each tile.  Invalid/padding pairs hold
+    *spread* in-range dummy indices (their payload is never read unmasked).
+    Use ``pair_tile == num_tiles`` to identify them, not ``pair_splat``.
+
+    Per-tile segment descriptors (all ``(T,) int32``):
+      * ``tile_start`` — raw (unaligned) first pair of the tile's segment;
+      * ``tile_count`` — segment length, capped at ``tile_capacity``;
+      * ``tile_base``  — chunk-aligned base, ``tile_start − tile_phi``;
+      * ``tile_phi``   — lead phase, ``tile_start mod chunk``;
+      * ``tile_span``  — ``phi + count`` (0 for empty tiles): the number of
+        pair positions a compositor walks from ``tile_base``, positions
+        ``< phi`` and ``≥ span`` belonging to the neighbouring tiles;
+      * ``grad_base``  — chunk-aligned base of the tile's exclusive region
+        in the gradient address space (size ``grad_pad_size(...)``).
+    """
+
+    pair_splat: torch.Tensor     # (P_pad,) int32 — tile-sorted order
+    pair_tile: Optional[torch.Tensor]  # (P_pad,) int32 (num_tiles = sentinel); None unless with_tiles
+    tile_start: torch.Tensor     # (T,) int32 — raw segment starts
+    tile_count: torch.Tensor     # (T,) int32 — capped per-tile count
+    tile_base: torch.Tensor      # (T,) int32 — chunk-aligned base
+    tile_phi: torch.Tensor       # (T,) int32 — start mod chunk
+    tile_span: torch.Tensor      # (T,) int32 — phi + count (0 if empty)
+    grad_base: torch.Tensor      # (T,) int32 — gradient-space region base
+    dropped_pairs: torch.Tensor  # () int32 — budget + capacity overflow
+    dest_of_exp: Optional[torch.Tensor] = None   # training slice
+    exp_offsets: Optional[torch.Tensor] = None   # training slice
+    exp_counts: Optional[torch.Tensor] = None    # training slice
+    exp_rank: Optional[torch.Tensor] = None      # training slice
+
+    @property
+    def pair_budget(self) -> int:
+        return self.pair_splat.shape[0]
+
+
+_log = get_logger("binning")
+
+# Test hook: the SAT cull claims image-exactness, so a test may render with
+# it force-disabled and assert equality.  It only removes exact-zero pairs.
+_SAT_CULL_ENABLED = True
+
+# Above this many splats the JAX package skips the SAT cull; kept so both
+# packages bin the same pairs at every size.
+_SAT_CULL_MAX_N = 4_194_304
+
+
+def _warn_dropped(dropped) -> None:
+    d = int(dropped)
+    if d > 0:
+        _log.warning_once(
+            f"pair budget/tile capacity exceeded — dropped {format_count(d)} "
+            "farthest (tile, splat) pairs; raise RenderConfig.pairs_per_splat "
+            "or tile_capacity",
+            key="dropped_pairs",
+        )
+    else:
+        _log.reset_once("dropped_pairs")
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderStats:
+    """Overflow counters carried out of a render as device tensors; reading
+    them (``int(...)``, :func:`report_stats`) is the host synchronisation.
+
+    * ``dropped_pairs`` — (tile, splat) pairs truncated by the pair budget
+      or a tile's capacity (farthest-first).
+    * ``exchange_dropped`` — splat columns dropped by strip-exchange bucket
+      overflow in the sharded renderer (later slice; ``None`` here).
+    """
+
+    dropped_pairs: torch.Tensor                       # () int32
+    exchange_dropped: Optional[torch.Tensor] = None   # () int32 or None
+
+    def any_dropped_host(self) -> bool:
+        """Host-side: True if any counter is nonzero (blocks on the value)."""
+        d = int(self.dropped_pairs)
+        e = int(self.exchange_dropped) if self.exchange_dropped is not None else 0
+        return d > 0 or e > 0
+
+
+def report_stats(stats: "RenderStats", config: RenderConfig = None) -> None:
+    """Host-side overflow reporting: warn once per condition while it holds,
+    re-arm when it clears.  Reads the counters to the host."""
+    if config is not None and not config.warn_on_drop:
+        return
+    _warn_dropped(stats.dropped_pairs)
+
+
+def warn_if_dropped(binned: "BinnedPairs", config: RenderConfig) -> None:
+    """Surface ``dropped_pairs`` of a render (a host read); no-op when
+    ``config.warn_on_drop`` is False."""
+    if not config.warn_on_drop:
+        return
+    _warn_dropped(binned.dropped_pairs)
+
+
+def tile_grid(width: int, height: int, tile_h: int, tile_w: int) -> Tuple[int, int]:
+    """Number of tiles (rows, cols) covering the screen."""
+    return -(-height // tile_h), -(-width // tile_w)
+
+
+def pair_pad_size(budget: int, chunk: int) -> int:
+    """Static padded pair-array length: the last tile's final chunk may read
+    past ``budget`` (``base + ceil(span/chunk)·chunk ≤ budget + chunk``)."""
+    return -(-budget // chunk) * chunk + chunk
+
+
+def grad_pad_size(budget: int, num_tiles: int, chunk: int) -> int:
+    """Static size of the gradient address space: per tile the region wastes
+    at most ``φ + (chunk−1)`` slots beyond its raw count, and Σ raw ≤ budget."""
+    return -(-(budget + num_tiles * 2 * (chunk - 1)) // chunk) * chunk + chunk
+
+
+_I32_SAFE = float(1 << 30)
+
+
+def _floor_i32(x: torch.Tensor) -> torch.Tensor:
+    """floor → int32, saturating far outside any tile grid (a float beyond
+    the int32 range converts to an unspecified value otherwise)."""
+    return torch.clamp(torch.floor(x), -_I32_SAFE, _I32_SAFE).to(torch.int32)
+
+
+def _axis_tiles(p_lo, p_hi, tile_px, off, stride, nt):
+    """Pixel range → local tile range on one axis under the strided mapping
+    (global tile g = off + ℓ·stride).  Returns (ℓ0, ℓ1, empty): clipped
+    local bounds plus the empty-range cull flag."""
+    g0 = _floor_i32(p_lo / tile_px) - off
+    g1 = _floor_i32(p_hi / tile_px) - off
+    if stride == 1:
+        l0, l1 = g0, g1
+    else:
+        l0 = torch.div(g0 + (stride - 1), stride, rounding_mode="floor")
+        l1 = torch.div(g1, stride, rounding_mode="floor")
+    empty = (l1 < l0) | (l1 < 0) | (l0 > nt - 1)
+    return torch.clamp(l0, 0, nt - 1), torch.clamp(l1, 0, nt - 1), empty
+
+
+def _tile_extents(f, width: int, height: int, config: RenderConfig, row_offset, col_offset):
+    """Per-splat tile-coverage counts + bbox operands (shared by binning and
+    the budget-tuning count pass so both cull/extent rules stay identical).
+
+    Local tile (ℓy, ℓx) covers GLOBAL tile
+    (``row_offset + ℓy·row_stride``, ``col_offset + ℓx·col_stride``)."""
+    nty, ntx = tile_grid(width, height, config.tile_h, config.tile_w)
+
+    x_lo = f[ROW_CX] - f[ROW_HX]
+    x_hi = f[ROW_CX] + f[ROW_HX]
+    y_lo = f[ROW_CY] - f[ROW_HY]
+    y_hi = f[ROW_CY] + f[ROW_HY]
+
+    # Cull: behind camera or opacity below the discard threshold; off-screen
+    # coverage culls through the empty-range flags below.
+    cull = (f[ROW_VALID] < 0.5) | (f[ROW_OP] < ALPHA_CUTOFF)
+
+    tw = float(config.tile_w)
+    th = float(config.tile_h)
+    tx0, tx1, ex = _axis_tiles(x_lo, x_hi, tw, col_offset, config.col_stride, ntx)
+    ty0, ty1, ey = _axis_tiles(y_lo, y_hi, th, row_offset, config.row_stride, nty)
+    cull = cull | ex | ey
+    nx = torch.where(cull, 0, tx1 - tx0 + 1)
+    ny = torch.where(cull, 0, ty1 - ty0 + 1)
+    counts = nx * ny
+    return counts, nx, tx0, ty0
+
+
+def count_pairs(
+    sorted_projected: ProjectedSplats,
+    width: int,
+    height: int,
+    config: RenderConfig,
+    row_offset: int = 0,
+    col_offset: int = 0,
+) -> torch.Tensor:
+    """Exact (tile, splat) pair count for one frame — the cheap counting pass
+    behind ``tune_pair_budget`` (bbox math + one reduction; no expansion,
+    sort, or pair arrays).  A 0-dim int32 tensor on the fields' device."""
+    counts, _, _, _ = _tile_extents(
+        sorted_projected.fields, width, height, config, int(row_offset), int(col_offset)
+    )
+    return torch.sum(counts, dtype=torch.int32)
+
+
+def bin_splats(
+    sorted_projected: ProjectedSplats,
+    width: int,
+    height: int,
+    config: RenderConfig,
+    row_offset: int = 0,
+    with_tiles: bool = True,
+    with_grad_map: bool = False,
+    order: torch.Tensor = None,
+    budget: int = None,
+    col_offset: int = 0,
+) -> BinnedPairs:
+    """Bin sanitized projected splats into tiles.
+
+    Depth ordering comes in one of two forms:
+      * ``order=None`` — the splats MUST already be in ascending
+        camera-distance order (the compositing order contract);
+      * ``order`` = the depth permutation — the fields stay in **storage
+        order**, only the small per-splat binning operands are reordered
+        through it, and ``pair_splat`` then holds *storage* indices.  The
+        pair sequence is identical either way.
+
+    ``row_offset`` / ``col_offset``: first tile row / column of this screen
+    region, in tiles (sharded rendering; 0 for a full frame).
+
+    ``budget``: overrides ``config.pair_budget(n)``.
+    """
+    if with_grad_map:
+        raise NotImplementedError(
+            "with_grad_map (the expansion-order gradient map) belongs to the "
+            "training slice of the port"
+        )
+    f = sorted_projected.fields
+    dev = f.device
+    i32 = torch.int32
+    n = sorted_projected.count
+    nty, ntx = tile_grid(width, height, config.tile_h, config.tile_w)
+    num_tiles = nty * ntx
+    if budget is None:
+        budget = config.pair_budget(n)
+    chunk = config.chunk
+    p_pad = pair_pad_size(budget, chunk)
+    if n == 0:
+        zt = torch.zeros((num_tiles,), dtype=i32, device=dev)
+        return BinnedPairs(
+            pair_splat=torch.zeros((p_pad,), dtype=i32, device=dev),
+            pair_tile=torch.full((p_pad,), num_tiles, dtype=i32, device=dev) if with_tiles else None,
+            tile_start=torch.full((num_tiles,), budget, dtype=i32, device=dev),
+            tile_count=zt, tile_base=zt.clone(), tile_phi=zt.clone(), tile_span=zt.clone(),
+            grad_base=zt.clone(),
+            dropped_pairs=torch.zeros((), dtype=i32, device=dev),
+        )
+    row_offset = int(row_offset)
+    col_offset = int(col_offset)
+    counts, nx, tx0, ty0 = _tile_extents(f, width, height, config, row_offset, col_offset)
+
+    counts_d = counts[order] if order is not None else counts
+
+    # Ragged → static: pair k belongs to the (depth-ranked) splat whose
+    # inclusive prefix sum first exceeds k.  Ranks ascend with distance, so
+    # truncation at the budget drops only the farthest splats' pairs.
+    # Computed via scatter-max of (rank+1) at each rank's offset followed by
+    # a prefix max — two linear passes.  Zero-count ranks share their offset
+    # with the next non-empty rank, whose larger id wins the max.
+    cum = scan_i32(counts_d.contiguous(), "add")
+    cum_last = cum[-1]
+    total = torch.clamp(cum_last, max=budget)
+    offsets = cum - counts_d
+    pair_idx = torch.arange(budget, dtype=i32, device=dev)
+    splat_ids = torch.arange(n, dtype=i32, device=dev)
+    # Offsets ≥ budget are dropped: they land in one extra slot that is cut
+    # off again (a scatter may not see an out-of-range index).
+    marks = torch.zeros((budget + 1,), dtype=i32, device=dev)
+    marks.scatter_reduce_(
+        0, torch.clamp(offsets, max=budget).long(), splat_ids + 1, "amax", include_self=True
+    )
+    s_safe = torch.clamp(scan_i32(marks[:budget].contiguous(), "max") - 1, max=n - 1)
+    s_safe = torch.clamp(s_safe, min=0).long()
+
+    nx1 = torch.clamp(nx, min=1)
+    tile0 = ty0 * ntx + tx0
+    bits_nx = ntx.bit_length()
+    packed_ok = (num_tiles << bits_nx) < 2**31
+    # Exact-coverage pair cull (hard-cutoff beauty pass only): the AABB
+    # expansion overcounts tiles at a *rotated* quad's corners.  A
+    # separating-axis test of the tile's pixel-center rect against the
+    # ±QUAD_EXTENT parallelogram (the compositor's ``inside`` mask support)
+    # culls pairs that cannot contain a nonzero pixel — image-exact.
+    # Skipped in wireframe mode and soft mode (no inside mask).
+    sat_cull = (
+        _SAT_CULL_ENABLED
+        and (not config.soft_cutoff)
+        and (not config.wireframe)
+        and n <= _SAT_CULL_MAX_N
+    )
+    bits_tile = max(num_tiles.bit_length(), 1)
+    # Opacity-aware SAT threshold: the compositor also discards α < 1/255, so
+    # a splat's support is bounded by the quad AND the disc power ≤ ln(255·op)
+    # — per-axis |q| ≤ min(QUAD_EXTENT, ρ), ρ = √ln(255·op).  ρ is
+    # CEIL-quantized to 8 bits, exactly as the JAX package packs it, so the
+    # dequantized threshold can only be looser (the cull stays exact).
+    rho_ok = packed_ok and ((num_tiles << (bits_nx + 8)) < 2**31) and sat_cull
+    thr_q = None
+    if rho_ok:
+        rho = torch.sqrt(
+            torch.log(torch.clamp(f[ROW_OP], min=ALPHA_CUTOFF) / ALPHA_CUTOFF)
+        )
+        thr_q = torch.clamp(
+            torch.ceil(
+                torch.clamp(rho, max=QUAD_EXTENT) * (255.0 / QUAD_EXTENT)
+            ).to(i32),
+            max=255,
+        )
+
+    def ranked(x):
+        return x[order] if order is not None else x
+
+    # Per-pair expansion operands.  (The JAX package bit-packs them into one
+    # gathered row; here they are plain per-row gathers of the same values.)
+    nx_s = ranked(nx1)[s_safe]
+    tile0_s = ranked(tile0)[s_safe]
+    r = pair_idx - offsets[s_safe]
+    # r // nx as an integer floor division (the JAX package takes a float
+    # quotient only because its target has no integer divide; the values
+    # are equal: 0 ≤ r < 2^24 and nx ≥ 1).
+    dty = torch.div(r, nx_s, rounding_mode="floor")
+    dtx = r - dty * nx_s
+    tile = tile0_s + dty * ntx + dtx
+    pair_valid = pair_idx < total
+    live = pair_valid
+    if sat_cull:
+        fq = f[0:6]  # cx, cy, ax, ay, bx, by
+        if order is not None:
+            fq = fq[:, order]
+        g = fq[:, s_safe]
+        cx_s, cy_s, ax_s, ay_s, bx_s, by_s = g[0], g[1], g[2], g[3], g[4], g[5]
+        # Tile's pixel-center rect: center (pcx, pcy), half-extent
+        # (tw−1)/2 px (pixel centers sit 0.5 px inside the tile edges).
+        ty0_s = torch.div(tile0_s, ntx, rounding_mode="floor")
+        tx_t = (tile0_s - ty0_s * ntx + dtx).to(torch.float32) * float(
+            config.col_stride
+        ) + float(col_offset)
+        ty_t = (ty0_s.to(torch.float32) + dty.to(torch.float32)) * float(
+            config.row_stride
+        ) + float(row_offset)
+        tw = float(config.tile_w)
+        th = float(config.tile_h)
+        pcx = tx_t * tw + (tw * 0.5) - cx_s
+        pcy = ty_t * th + (th * 0.5) - cy_s
+        hx_r = (tw - 1.0) * 0.5
+        hy_r = (th - 1.0) * 0.5
+        # Quad-axis intervals of the rect: |q·c| ± h·(|a|+|b|); separated on
+        # an axis ⇒ every pixel center fails the compositor's |q|∞ ≤ 2 mask.
+        qxc = ax_s * pcx + ay_s * pcy
+        qyc = bx_s * pcx + by_s * pcy
+        e1 = hx_r * torch.abs(ax_s) + hy_r * torch.abs(ay_s)
+        e2 = hx_r * torch.abs(bx_s) + hy_r * torch.abs(by_s)
+        # Per-splat separation threshold: the quad extent, tightened to the
+        # opacity discard radius ρ (CEIL-quantized, so only ever looser than
+        # the true ρ).  Separation at ρ on either quad axis means
+        # power > ρ² = ln(op/cutoff) at every pixel center, i.e. α < 1/255.
+        if rho_ok:
+            thr1 = ranked(thr_q)[s_safe].to(torch.float32) * (QUAD_EXTENT / 255.0)
+        else:
+            thr1 = QUAD_EXTENT
+        # Margin: 1e-3 quad units absolute (association-order rounding vs the
+        # compositor's own qx/qy evaluation) plus a magnitude-relative term
+        # for needle splats, where the two products nearly cancel.
+        err1 = 1e-3 + 1e-6 * (torch.abs(ax_s * pcx) + torch.abs(ay_s * pcy))
+        err2 = 1e-3 + 1e-6 * (torch.abs(bx_s * pcx) + torch.abs(by_s * pcy))
+        separated = (torch.abs(qxc) > thr1 + err1 + e1) | (
+            torch.abs(qyc) > thr1 + err2 + e2
+        )
+        live = live & torch.logical_not(separated)
+    tile = torch.where(live, tile, num_tiles)
+    # Invalid pairs point at *spread* real ranks instead of one shared
+    # sentinel (kept from the JAX package so the arrays compare equal).  Safe
+    # because an invalid pair's payload is never read: it sorts past every
+    # tile's span and ``build_tile_lists`` drops it by its sentinel TILE id.
+    spread_mask = (1 << max(int(n).bit_length() - 1, 0)) - 1
+    spread = torch.clamp(pair_idx & spread_mask, max=n - 1)
+    rank_of_pair = torch.where(pair_valid, s_safe.to(i32), spread)
+
+    # One sort by tile groups pairs per tile while preserving the global
+    # front-to-back order within each tile.  (tile, rank) is packed into a
+    # single int32 key when the bit budget allows.  Keys of valid pairs are
+    # unique (a splat touches a tile at most once), so stability is moot;
+    # ranks ascend with depth so ascending key order IS front-to-back.
+    tile_ids = torch.arange(num_tiles + 1, dtype=i32, device=dev)
+    bits_r = max((n - 1).bit_length(), 1)
+    key_ok = ((num_tiles + 1) << bits_r) <= 2**31 - 1
+    if key_ok:
+        key = (tile << bits_r) | rank_of_pair
+        key_sorted = torch.sort(key).values
+        tile_sorted = key_sorted >> bits_r
+        rank_sorted = key_sorted & ((1 << bits_r) - 1)
+        starts = torch.searchsorted(
+            key_sorted, tile_ids << bits_r, right=False, out_int32=True
+        )
+    else:  # 2^23-scale scenes on huge tile grids: stable two-array sort
+        tile_sorted, perm = torch.sort(tile, stable=True)
+        rank_sorted = rank_of_pair[perm]
+        starts = torch.searchsorted(tile_sorted, tile_ids, right=False, out_int32=True)
+    # pair → payload column: storage index (through ``order``) so the
+    # compositor reads the unsorted field matrix directly.
+    if order is not None:
+        splat_sorted = order[rank_sorted.long()].to(i32)
+    else:
+        splat_sorted = rank_sorted
+    sb = starts[:-1]
+    raw_count = starts[1:] - sb
+    tile_count = torch.clamp(raw_count, max=config.tile_capacity)
+
+    # Unaligned-segment descriptors — O(T) math, no pair re-layout.
+    phi = sb % chunk
+    base = sb - phi
+    span = torch.where(tile_count > 0, phi + tile_count, 0)
+
+    tail = torch.arange(p_pad - budget, dtype=i32, device=dev) & spread_mask
+    pair_splat = torch.cat([splat_sorted, torch.clamp(tail, max=n - 1)])
+    pair_tile = None
+    if with_tiles:
+        pair_tile = torch.cat(
+            [tile_sorted, torch.full((p_pad - budget,), num_tiles, dtype=i32, device=dev)]
+        )
+
+    # Gradient address space: tile t's exclusive region starts at
+    # grad_base[t], sized ceil((φ + raw)/chunk)·chunk from the RAW count, so
+    # the per-tile shift grad_base[t] + φ[t] − start[t] stays monotone
+    # non-decreasing (the backward's per-pair broadcast relies on it).
+    gpad_t = torch.where(
+        raw_count > 0,
+        torch.div(phi + raw_count + (chunk - 1), chunk, rounding_mode="floor") * chunk,
+        0,
+    )
+    grad_base = torch.cat(
+        [torch.zeros((1,), dtype=i32, device=dev), torch.cumsum(gpad_t, 0, dtype=i32)]
+    )[:-1]
+
+    dropped = torch.clamp(cum_last - budget, min=0) + torch.sum(
+        raw_count - tile_count, dtype=i32
+    )
+    return BinnedPairs(
+        pair_splat=pair_splat,
+        pair_tile=pair_tile,
+        tile_start=sb,
+        tile_count=tile_count,
+        tile_base=base,
+        tile_phi=phi,
+        tile_span=span,
+        grad_base=grad_base,
+        dropped_pairs=dropped.to(i32),
+    )

@@ -1,0 +1,195 @@
+"""Top-level render entry point (counterpart of ``gsplat_tpu.render``).
+
+``image = render(splats, camera, config)``: project → global depth sort →
+tile binning → compositing, on the device the splats live on.
+
+Backends:
+  * ``"cuda"``     — the main path: the prefix scans of the binning and the
+    compositing go through the kernel wrappers (``ops/kernels``).  On CUDA
+    tensors the wrappers launch the hand-written kernels; on CPU tensors they
+    take their plain PyTorch versions, so a CPU run walks the same code up to
+    the launch.
+  * ``"tiles"``    — plain-PyTorch tiled compositing (mid oracle).
+  * ``"reference"``— O(N·H·W) per-pixel oracle (ground truth).
+  * ``"auto"``     — ``"cuda"``.  Nothing probes for a card and quietly picks
+    another backend.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .models.camera import Camera
+from .models.splats import GaussianSplats
+from .ops.binning import (
+    RenderStats,
+    bin_splats,
+    count_pairs,
+    tile_grid,
+    warn_if_dropped,
+)
+from .ops.kernels.composite import composite_splats, pack_payload
+from .ops.projection import project_splats
+from .ops.rasterize_ref import quantize_payload, render_reference, sanitize_projected
+from .ops.rasterize_tiles import permute_fields, render_tiles, sort_by_depth
+from .utils.config import RenderConfig
+
+
+def render_cuda(
+    splats: GaussianSplats,
+    camera: Camera,
+    config: RenderConfig = RenderConfig(),
+    order: torch.Tensor = None,
+    with_stats: bool = False,
+) -> torch.Tensor:
+    """Kernel-path render (the counterpart of ``render_pallas``).  Returns
+    (H, W, 4) premultiplied RGBA — or ``(image, RenderStats)`` with
+    ``with_stats=True``.
+
+    ``order``: optional precomputed depth permutation (amortized sort).
+    """
+    if config.tile_h != 32 or config.tile_w != 32:
+        raise ValueError("the cuda backend requires tile_h == tile_w == 32")
+    height, width = camera.height, camera.width
+    if splats.count == 0:
+        image = torch.zeros((height, width, 4), dtype=torch.float32, device=splats.device)
+        zero = torch.zeros((), dtype=torch.int32, device=splats.device)
+        return (image, RenderStats(dropped_pairs=zero)) if with_stats else image
+    projected = project_splats(
+        splats, camera, config.sh_order,
+        tight_footprint=not config.soft_cutoff, only_sh=config.only_sh,
+    )
+    p = quantize_payload(sanitize_projected(projected), config)
+    # Fields are permuted into depth order here, and the binning then works
+    # purely in rank space: within a tile's segment the payload columns the
+    # compositor reads are then nearly ascending.
+    p = sort_by_depth(p) if order is None else permute_fields(p, order, 14)
+    binned = bin_splats(p, width, height, config, with_tiles=False)
+    nty, ntx = tile_grid(width, height, config.tile_h, config.tile_w)
+    if config.payload_dtype == "packed":
+        payload = pack_payload(p.fields)
+    else:
+        payload = p.fields[:10].contiguous()
+    image, _used = composite_splats(
+        payload,
+        binned.pair_splat,
+        binned.tile_base,
+        binned.tile_phi,
+        binned.tile_span,
+        nty,
+        ntx,
+        height,
+        width,
+        config,
+    )
+    # After the last launch is queued: the only host read of the frame.
+    warn_if_dropped(binned, config)
+    if with_stats:
+        return image, RenderStats(dropped_pairs=binned.dropped_pairs)
+    return image
+
+
+def measure_pairs(
+    splats: GaussianSplats, camera: Camera, config: RenderConfig = RenderConfig()
+) -> int:
+    """Exact (tile, splat) pair count this frame would bin (host int)."""
+    p = sanitize_projected(
+        project_splats(
+            splats, camera, config.sh_order,
+            tight_footprint=not config.soft_cutoff,
+        )
+    )
+    return int(count_pairs(p, camera.width, camera.height, config))
+
+
+def tune_pair_budget(
+    splats: GaussianSplats,
+    cameras,
+    config: RenderConfig = RenderConfig(),
+    headroom: float = 1.2,
+    bucket: int = 1 << 17,
+) -> RenderConfig:
+    """Measure the scene's real (tile, splat) pair count and return a config
+    whose static pair budget fits it, instead of the worst-case
+    ``pairs_per_splat·N`` default.
+
+    Every pair-proportional array is sized by the *static* budget, so fitting
+    it cuts memory and the binning's work proportionally.  One cheap counting
+    pass per camera, take the max, apply ``headroom``, round up to ``bucket``
+    so nearby cameras share array sizes.  The overflow contract is unchanged:
+    if a later frame exceeds the tuned budget, the farthest pairs drop and
+    the cull warning fires — raise ``headroom`` then.  The measured need wins
+    in BOTH directions: heavy-tailed scenes routinely exceed the
+    ``pairs_per_splat`` default.
+
+    ``cameras``: one Camera or an iterable (e.g. the training set's extremes).
+    """
+    if isinstance(cameras, Camera):
+        cameras = [cameras]
+    worst = 0
+    for cam in cameras:
+        worst = max(worst, measure_pairs(splats, cam, config))
+    budget = -(-int(round(worst * headroom)) // bucket) * bucket
+    return dataclasses.replace(config, pair_budget_override=max(budget, bucket))
+
+
+def composite_over(image: torch.Tensor, background_rgba: torch.Tensor) -> torch.Tensor:
+    """Under-composite a premultiplied splat layer over an opaque-or-not
+    background: ``out = splat + (1 − splat_a)·bg``."""
+    a = image[..., 3:4]
+    return image + (1.0 - a) * background_rgba
+
+
+def render(
+    splats: GaussianSplats,
+    camera: Camera,
+    config: RenderConfig = RenderConfig(),
+    backend: str = "auto",
+    with_stats: bool = False,
+    background_rgba: torch.Tensor = None,
+    background_depth: torch.Tensor = None,
+) -> torch.Tensor:
+    """Render a splat scene on the splats' device.  Returns (H, W, 4)
+    premultiplied RGBA.
+
+    ``with_stats=True`` returns ``(image, RenderStats)`` instead; pass the
+    stats to :func:`gsplat_tpu_torch.ops.binning.report_stats`.
+
+    ``background_rgba``: (H, W, 4) scene color the splat layer is
+    under-composited over.  ``background_depth`` / ``config.depth_test``
+    (depth-tested compositing into a host scene) and ``config.wireframe`` are
+    later slices of the port and raise ``NotImplementedError``.
+    """
+    if background_depth is not None or config.depth_test:
+        raise NotImplementedError(
+            "depth-tested compositing (background_depth / config.depth_test) "
+            "is a later slice of the port (modes off the main path)"
+        )
+    if config.wireframe:
+        raise NotImplementedError(
+            "wireframe rendering is a later slice of the port (modes off the main path)"
+        )
+    if backend == "auto":
+        backend = "cuda"
+    if backend == "cuda":
+        out = render_cuda(splats, camera, config, with_stats=with_stats)
+    elif backend == "tiles":
+        out = render_tiles(splats, camera, config, with_stats=with_stats)
+    elif backend == "reference":
+        image = render_reference(splats, camera, config)
+        if with_stats:
+            # the O(N·H·W) oracle composites every splat — nothing can drop
+            zero = torch.zeros((), dtype=torch.int32, device=image.device)
+            out = (image, RenderStats(dropped_pairs=zero))
+        else:
+            out = image
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
+    if background_rgba is not None:
+        if with_stats:
+            out = (composite_over(out[0], background_rgba), out[1])
+        else:
+            out = composite_over(out, background_rgba)
+    return out
