@@ -14,8 +14,10 @@ Device rule: constructors and generators take ``device=None``, which means
 the card (``"cuda"``); ``render`` runs where its splats live.  Nothing falls
 back to the CPU when the card is missing.
 
-This slice covers the forward render (serving).  Training, sharding,
-wireframe, depth test, the scene registry and I/O are later slices.
+Covered so far: the forward render (serving), its backward through
+hand-written kernels, and the single-device trainer (``train/``,
+``io/checkpoint.py``).  Sharding, wireframe, depth test, the scene registry
+and file I/O are later slices.
 """
 
 from .version import __version__
@@ -34,6 +36,15 @@ from .ops.projection import ProjectedSplats, project_splats
 from .ops.rasterize_ref import render_reference
 from .ops.rasterize_tiles import depth_order, render_tiles
 from .render import composite_over, measure_pairs, render, render_cuda, tune_pair_budget
+from .train.loss import l1_loss, psnr, render_loss, ssim
+from .train.params import (
+    SplatParams,
+    params_from_numpy,
+    params_from_splats,
+    splats_from_params,
+)
+from .train.trainer import default_optimizer, make_train_step
+from .io.checkpoint import restore_checkpoint, save_checkpoint
 
 __all__ = [
     "render",
@@ -61,4 +72,16 @@ __all__ = [
     "ProjectedSplats",
     "project_splats",
     "depth_order",
+    "SplatParams",
+    "params_from_splats",
+    "splats_from_params",
+    "params_from_numpy",
+    "l1_loss",
+    "ssim",
+    "render_loss",
+    "psnr",
+    "default_optimizer",
+    "make_train_step",
+    "save_checkpoint",
+    "restore_checkpoint",
 ]

@@ -3,8 +3,9 @@
 //
 // Replaces the forward half of the TPU kernel
 // gsplat_tpu/ops/pallas/composite.py:_fwd_kernel (with _splat_alpha and
-// _pixel_coords), in its variant without transmittance checkpoints, for
-// strides 1 and no depth test or wireframe.  What it computes is the same:
+// _pixel_coords), with and without transmittance checkpoints (a template
+// flag), for strides 1 and no depth test or wireframe.  What it computes is
+// the same:
 //
 //   * pixel centres (tx*32 + col + 0.5, ty*32 + row + 0.5);
 //   * pair positions pos in [phi, span) counted from tile_base are the
@@ -19,7 +20,13 @@
 //     iff every one of its 1024 pixels (those beyond the image edge
 //     included) has T <= t_eps.  A pixel whose own T is already below t_eps
 //     keeps accumulating until the whole tile stops;
-//   * used[t] = min(span, chunks_walked * chunk).
+//   * used[t] = min(span, chunks_walked * chunk);
+//   * with checkpoints: at the top of every chunk ci it walks, each thread
+//     stores its pixels' T into tchk[t][ci][pixel], pixels row-major within
+//     the tile (the layout is this port's own; a warp stores 32 neighbouring
+//     floats).  The tensor is sized for tile_capacity / chunk + 1 chunks a
+//     tile, the most a capped span can reach, so nothing is read back to
+//     size it.  Image and used[] do not depend on the flag.
 //
 // What differs from the TPU design, and why.  The TPU kernel needed a
 // (rows, P_pad) pair payload materialised by a gather beforehand, because it
@@ -58,16 +65,13 @@
 // Plain C interface: nothing is allocated or synchronised here, and the
 // entry returns cudaGetLastError() after its launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int TILE = 32;
-constexpr int THREADS = 256;
-constexpr int PIX = 4;  // pixels per thread: rows r0, r0+8, r0+16, r0+24
+using namespace gsplat;  // PIX = 4 pixels per thread: rows r0, r0+8, r0+16, r0+24
 
-template <bool PACKED, bool SOFT>
+template <bool PACKED, bool SOFT, bool CHK>
 __global__ void __launch_bounds__(THREADS)
 composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit words
                      long long n_cols,
@@ -77,12 +81,12 @@ composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
                      const int* __restrict__ tile_span,
                      float* __restrict__ image,  // (height, width, 4)
                      int* __restrict__ used,     // (num_tiles,)
-                     int ntx, int height, int width, int chunk,
+                     float* __restrict__ tchk,   // (num_tiles, max_chunks, 1024) if CHK
+                     int ntx, int height, int width, int chunk, int max_chunks,
                      float max_alpha, float t_eps) {
-    constexpr int ROWS = PACKED ? 8 : 10;
     extern __shared__ int smem[];
     int* s_idx = smem;          // [chunk]
-    int* s_pay = smem + chunk;  // [ROWS][chunk]
+    int* s_pay = smem + chunk;  // [8 or 10 rows][chunk]
 
     const int t = blockIdx.x;
     const int ty = t / ntx;
@@ -94,7 +98,6 @@ composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
     const int col = tid & (TILE - 1);
     const int row0 = tid >> 5;
 
-    const float alpha_cutoff = (float)(1.0 / 255.0);
     const float px = (float)(tx * TILE + col) + 0.5f;
     float py[PIX], T[PIX], acc_r[PIX], acc_g[PIX], acc_b[PIX];
 #pragma unroll
@@ -112,60 +115,28 @@ composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
         const int c0 = ci * chunk;
         const int lo = max(c0, phi);
         const int hi = min(c0 + chunk, span);
-        const int cnt = hi - lo;  // >= 1: phi < chunk and span > phi
+        // hi - lo >= 1: phi < chunk and span > phi
 
-        for (int i = tid; i < cnt; i += THREADS) s_idx[i] = pair_splat[(long long)base + lo + i];
-        __syncthreads();
-        for (int w = tid; w < cnt * ROWS; w += THREADS) {
-            const int r = w / cnt;
-            const int i = w - r * cnt;
-            s_pay[r * chunk + i] = fields[(long long)r * n_cols + s_idx[i]];
+        if (CHK) {
+#pragma unroll
+            for (int k = 0; k < PIX; ++k)
+                tchk[((long long)t * max_chunks + ci) * TILE_PIXELS + k * THREADS + tid] = T[k];
         }
-        __syncthreads();
+        load_chunk<PACKED>(fields, n_cols, pair_splat, base, c0, lo, hi, chunk, s_idx, s_pay);
 
-        for (int i = 0; i < cnt; ++i) {
-            const float cx = __int_as_float(s_pay[0 * chunk + i]);
-            const float cy = __int_as_float(s_pay[1 * chunk + i]);
-            const float ax = __int_as_float(s_pay[2 * chunk + i]);
-            const float ay = __int_as_float(s_pay[3 * chunk + i]);
-            const float bx = __int_as_float(s_pay[4 * chunk + i]);
-            const float by = __int_as_float(s_pay[5 * chunk + i]);
-            float cr, cg, cb, op;
-            if (PACKED) {
-                const int w6 = s_pay[6 * chunk + i];
-                const int w7 = s_pay[7 * chunk + i];
-                cr = __int_as_float(w6 & (int)0xffff0000u);
-                cg = __int_as_float(w6 << 16);
-                cb = __int_as_float(w7 & (int)0xffff0000u);
-                op = __int_as_float(w7 << 16);
-            } else {
-                cr = __int_as_float(s_pay[6 * chunk + i]);
-                cg = __int_as_float(s_pay[7 * chunk + i]);
-                cb = __int_as_float(s_pay[8 * chunk + i]);
-                op = __int_as_float(s_pay[9 * chunk + i]);
-            }
-            const float dx = px - cx;
-            const float dxax = dx * ax;
-            const float dxbx = dx * bx;
+        for (int p = lo - c0; p < hi - c0; ++p) {
+            const Pair q = read_pair<PACKED>(s_pay, chunk, p);
+            const float dx = px - q.cx;
+            const float dxax = dx * q.ax;
+            const float dxbx = dx * q.bx;
 #pragma unroll
             for (int k = 0; k < PIX; ++k) {
-                const float dy = py[k] - cy;
-                const float qx = dxax + dy * ay;
-                const float qy = dxbx + dy * by;
-                const float qx2 = qx * qx;
-                const float qy2 = qy * qy;
-                const float power = qx2 + qy2;
-                const float a = expf(-power) * op;
-                // NaN-preserving min, as the plain version's torch.minimum
-                float alpha = (a > max_alpha) ? max_alpha : a;
-                if (!SOFT) {
-                    const bool keep = (qx2 <= 4.0f) && (qy2 <= 4.0f) && (alpha >= alpha_cutoff);
-                    alpha = keep ? alpha : 0.0f;
-                }
+                const float dy = py[k] - q.cy;
+                const float alpha = pixel_alpha<SOFT>(q, dxax, dxbx, dy, max_alpha);
                 const float w = alpha * T[k];
-                acc_r[k] = acc_r[k] + w * cr;
-                acc_g[k] = acc_g[k] + w * cg;
-                acc_b[k] = acc_b[k] + w * cb;
+                acc_r[k] = acc_r[k] + w * q.cr;
+                acc_g[k] = acc_g[k] + w * q.cg;
+                acc_b[k] = acc_b[k] + w * q.cb;
                 T[k] = T[k] * (1.0f - alpha);
             }
         }
@@ -196,11 +167,13 @@ composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
 // packed != 0 (8, n_cols) int32 rows [cx cy ax ay bx by (r,g) (b,op)], the
 // first six bit-cast float32 and the last two holding two bf16 halves.
 // image: (height, width, 4) float32, 16-byte aligned; used: (nty*ntx,) int32.
+// tchk: (nty*ntx, max_chunks, 1024) float32 to take the checkpoints, or null.
 extern "C" int gsplat_composite_fwd(const void* fields, long long n_cols, int packed, int soft,
                                     const void* pair_splat, const void* tile_base,
                                     const void* tile_phi, const void* tile_span, void* image,
-                                    void* used, int nty, int ntx, int height, int width,
-                                    int chunk, float max_alpha, float t_eps, void* stream) {
+                                    void* used, void* tchk, int nty, int ntx, int height,
+                                    int width, int chunk, int max_chunks, float max_alpha,
+                                    float t_eps, void* stream) {
     const int num_tiles = nty * ntx;
     if (num_tiles <= 0) return 0;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -214,14 +187,21 @@ extern "C" int gsplat_composite_fwd(const void* fields, long long n_cols, int pa
     const int* ts = static_cast<const int*>(tile_span);
     float* im = static_cast<float*>(image);
     int* u = static_cast<int*>(used);
-#define GSPLAT_LAUNCH(P, S)                                                              \
-    composite_fwd_kernel<P, S><<<num_tiles, THREADS, shmem, s>>>(                        \
-        f, n_cols, ps, tb, tp, ts, im, u, ntx, height, width, chunk, max_alpha, t_eps)
+    float* tc = static_cast<float*>(tchk);
+#define GSPLAT_LAUNCH(P, S, C)                                                           \
+    composite_fwd_kernel<P, S, C><<<num_tiles, gsplat::THREADS, shmem, s>>>(             \
+        f, n_cols, ps, tb, tp, ts, im, u, tc, ntx, height, width, chunk, max_chunks,     \
+        max_alpha, t_eps)
+#define GSPLAT_LAUNCH_C(P, S)                                                            \
+    do {                                                                                 \
+        if (tc) GSPLAT_LAUNCH(P, S, true); else GSPLAT_LAUNCH(P, S, false);              \
+    } while (0)
     if (packed) {
-        if (soft) GSPLAT_LAUNCH(true, true); else GSPLAT_LAUNCH(true, false);
+        if (soft) GSPLAT_LAUNCH_C(true, true); else GSPLAT_LAUNCH_C(true, false);
     } else {
-        if (soft) GSPLAT_LAUNCH(false, true); else GSPLAT_LAUNCH(false, false);
+        if (soft) GSPLAT_LAUNCH_C(false, true); else GSPLAT_LAUNCH_C(false, false);
     }
+#undef GSPLAT_LAUNCH_C
 #undef GSPLAT_LAUNCH
     return (int)cudaGetLastError();
 }

@@ -20,8 +20,13 @@ The screen is cut into tiles and each splat is expanded into one
 
      ``grad_base`` lays out the separate gradient address space of the
      backward pass (one chunk-aligned region per tile, sized from the *raw*
-     per-tile counts); it is O(T) and computed now, while the expansion-order
-     gradient map (``with_grad_map=True``) belongs to the training slice.
+     per-tile counts).  ``with_grad_map=True`` adds the expansion-order
+     gradient map: ``dest_of_exp[j]`` is the gradient-space column of
+     expansion pair ``j`` (the bitwise-not of ``j`` for a dropped pair),
+     ``exp_rank[j]`` its depth rank, and ``exp_offsets`` / ``exp_counts`` each
+     rank's contiguous window of expansion pairs.  The two per-pair segment
+     descriptors it needs are a scatter-max at the segment starts followed
+     by a prefix max — two more launches of the scan kernel.
 
 Overflow policy: pairs beyond the budget and per-tile entries beyond
 ``tile_capacity`` drop the *farthest* splats; the dropped count is reported
@@ -86,10 +91,11 @@ class BinnedPairs:
     tile_span: torch.Tensor      # (T,) int32 — phi + count (0 if empty)
     grad_base: torch.Tensor      # (T,) int32 — gradient-space region base
     dropped_pairs: torch.Tensor  # () int32 — budget + capacity overflow
-    dest_of_exp: Optional[torch.Tensor] = None   # training slice
-    exp_offsets: Optional[torch.Tensor] = None   # training slice
-    exp_counts: Optional[torch.Tensor] = None    # training slice
-    exp_rank: Optional[torch.Tensor] = None      # training slice
+    # Gradient map (``with_grad_map=True`` only):
+    dest_of_exp: Optional[torch.Tensor] = None   # (budget,) int32 — exp pair → gradient slot, ~j if dropped
+    exp_offsets: Optional[torch.Tensor] = None   # (N,) int32 — rank r's pairs at [off, off+cnt)
+    exp_counts: Optional[torch.Tensor] = None    # (N,) int32 — indexed by depth rank
+    exp_rank: Optional[torch.Tensor] = None      # (budget,) int32 — depth rank of exp pair j, −1 past the total
 
     @property
     def pair_budget(self) -> int:
@@ -270,11 +276,6 @@ def bin_splats(
 
     ``budget``: overrides ``config.pair_budget(n)``.
     """
-    if with_grad_map:
-        raise NotImplementedError(
-            "with_grad_map (the expansion-order gradient map) belongs to the "
-            "training slice of the port"
-        )
     f = sorted_projected.fields
     dev = f.device
     i32 = torch.int32
@@ -294,6 +295,11 @@ def bin_splats(
             tile_count=zt, tile_base=zt.clone(), tile_phi=zt.clone(), tile_span=zt.clone(),
             grad_base=zt.clone(),
             dropped_pairs=torch.zeros((), dtype=i32, device=dev),
+            # every expansion pair is a dropped one: ~j, rank −1
+            dest_of_exp=~torch.arange(budget, dtype=i32, device=dev) if with_grad_map else None,
+            exp_offsets=torch.zeros((0,), dtype=i32, device=dev) if with_grad_map else None,
+            exp_counts=torch.zeros((0,), dtype=i32, device=dev) if with_grad_map else None,
+            exp_rank=torch.full((budget,), -1, dtype=i32, device=dev) if with_grad_map else None,
         )
     row_offset = int(row_offset)
     col_offset = int(col_offset)
@@ -429,22 +435,30 @@ def bin_splats(
     # One sort by tile groups pairs per tile while preserving the global
     # front-to-back order within each tile.  (tile, rank) is packed into a
     # single int32 key when the bit budget allows.  Keys of valid pairs are
-    # unique (a splat touches a tile at most once), so stability is moot;
-    # ranks ascend with depth so ascending key order IS front-to-back.
+    # unique (a splat touches a tile at most once), so stability is moot for
+    # them; ranks ascend with depth so ascending key order IS front-to-back.
+    # Invalid pairs share keys (sentinel tile × spread rank), and with the
+    # gradient map the expansion index rides through the sort as its
+    # permutation: the sort is then stable, so that ``dest_of_exp`` of
+    # dropped pairs equals the JAX package's (whose sort is stable).
     tile_ids = torch.arange(num_tiles + 1, dtype=i32, device=dev)
     bits_r = max((n - 1).bit_length(), 1)
     key_ok = ((num_tiles + 1) << bits_r) <= 2**31 - 1
+    eidx_sorted = None
     if key_ok:
         key = (tile << bits_r) | rank_of_pair
-        key_sorted = torch.sort(key).values
+        if with_grad_map:
+            key_sorted, eidx_sorted = torch.sort(key, stable=True)
+        else:
+            key_sorted = torch.sort(key).values
         tile_sorted = key_sorted >> bits_r
         rank_sorted = key_sorted & ((1 << bits_r) - 1)
         starts = torch.searchsorted(
             key_sorted, tile_ids << bits_r, right=False, out_int32=True
         )
     else:  # 2^23-scale scenes on huge tile grids: stable two-array sort
-        tile_sorted, perm = torch.sort(tile, stable=True)
-        rank_sorted = rank_of_pair[perm]
+        tile_sorted, eidx_sorted = torch.sort(tile, stable=True)
+        rank_sorted = rank_of_pair[eidx_sorted]
         starts = torch.searchsorted(tile_sorted, tile_ids, right=False, out_int32=True)
     # pair → payload column: storage index (through ``order``) so the
     # compositor reads the unsorted field matrix directly.
@@ -482,6 +496,39 @@ def bin_splats(
         [torch.zeros((1,), dtype=i32, device=dev), torch.cumsum(gpad_t, 0, dtype=i32)]
     )[:-1]
 
+    dest_of_exp = None
+    exp_rank = None
+    if with_grad_map:
+        # Per-sorted-pair segment descriptors without per-pair gathers:
+        # scatter each tile's descriptor at its segment start and take the
+        # prefix max.  Both scattered value sequences are monotone
+        # non-decreasing in tile id (the shift: see above; capped ends:
+        # starts[t+1] ≥ starts[t] + tile_count[t]), so ties at shared start
+        # positions (empty tiles) resolve to the owning (largest) tile and
+        # the running max reproduces the piecewise-constant per-pair
+        # descriptor exactly.  Starts equal to ``budget`` (tiles past the
+        # last pair) land in one extra slot that is cut off again.
+        sb_long = sb.long()
+
+        def seg_desc(values):
+            m = torch.zeros((budget + 1,), dtype=i32, device=dev)
+            m.scatter_reduce_(0, sb_long, values, "amax", include_self=True)
+            return scan_i32(m[:budget].contiguous(), "max")
+
+        delta = seg_desc(grad_base + phi - sb)  # sorted position → gradient slot
+        cap_end = seg_desc(sb + tile_count)     # capped segment end
+        keep = pair_idx < cap_end               # capacity + sentinel pairs
+        # A dropped pair carries the bitwise-not of its own expansion index
+        # (negative, so told apart by its sign).
+        dest = torch.where(keep, pair_idx + delta, ~eidx_sorted.to(i32))
+        # ``eidx_sorted`` is a permutation of arange(budget): one scatter
+        # inverts it (the JAX package sorts it back, scatters being slow on
+        # its target).
+        dest_of_exp = torch.empty((budget,), dtype=i32, device=dev)
+        dest_of_exp[eidx_sorted] = dest
+        # Depth rank of each expansion pair (−1 beyond the real pair count).
+        exp_rank = torch.where(pair_valid, s_safe.to(i32), -1)
+
     dropped = torch.clamp(cum_last - budget, min=0) + torch.sum(
         raw_count - tile_count, dtype=i32
     )
@@ -495,4 +542,8 @@ def bin_splats(
         tile_span=span,
         grad_base=grad_base,
         dropped_pairs=dropped.to(i32),
+        dest_of_exp=dest_of_exp,
+        exp_rank=exp_rank,
+        exp_offsets=offsets if with_grad_map else None,
+        exp_counts=counts_d if with_grad_map else None,
     )

@@ -2,8 +2,8 @@
 with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes its own shared library
-``build/gsplat_tpu_torch-<hash>/lib<name>.so`` (the hash covers every source
-and flag, so an edited source rebuilds), all compiled in parallel — one
+``build/gsplat_tpu_torch-<hash>/lib<name>.so`` (the hash covers every source,
+shared header and flag, so an edited source rebuilds), all compiled in parallel — one
 ``nvcc`` process per source.  The sources expose plain ``extern "C"`` entry
 points that take device pointers, sizes and a stream and return
 ``cudaGetLastError()``; nothing includes PyTorch's headers, which keeps a
@@ -34,9 +34,12 @@ NVCC_FLAGS = (
 
 # Per-source extra flags.  The compositor is held bit-for-bit against a
 # sequence of separately rounded PyTorch ops across two hard thresholds
-# (α ≥ 1/255, q² ≤ 4), so the compiler must not contract a*b+c into an FMA.
+# (α ≥ 1/255, q² ≤ 4), so the compiler must not contract a*b+c into an FMA;
+# its backward recomputes the same α and has to land on the same side.
 EXTRA_FLAGS = {
     "composite_fwd": ("-fmad=false",),
+    "composite_bwd": ("-fmad=false",),
+    "segsum": (),
     "scan": (),
 }
 
@@ -66,6 +69,9 @@ def build_dir() -> Path:
         h.update(name.encode())
         h.update((CSRC_DIR / f"{name}.cu").read_bytes())
         h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS[name]).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return base / f"gsplat_tpu_torch-{h.hexdigest()[:16]}"
 
 

@@ -1,5 +1,5 @@
-"""Compositing forward: per-tile front-to-back blend of depth-ordered
-(tile, splat) pair segments.
+"""Compositing: per-tile front-to-back blend of depth-ordered (tile, splat)
+pair segments, its backward, and the differentiable function built on both.
 
 ``composite_splats`` replaces the forward half of the TPU kernel
 ``gsplat_tpu/ops/pallas/composite.py`` (``_fwd_kernel``, reached through
@@ -9,17 +9,29 @@ the tile's segment walked in ``config.chunk`` steps with a block-wide vote for
 the early stop.  The payload gather is part of the function — the kernel and
 the plain version read ``fields[:, pair_splat[j]]`` themselves — so the
 ``(rows, P_pad)`` pair payload the TPU path materialises never exists here.
+With ``checkpoint=True`` the kernel also writes every pixel's transmittance at
+the top of each chunk it walks (``fwd_chk_call`` of the JAX package).
 
-What bounds it: operations — every live pair costs 1024 pixel updates of
-about 30 float instructions and one ``expf``, against 32–40 bytes of payload;
-the per-pair shared-memory broadcast comes next.  The kernel is compiled
-without FMA contraction so that it agrees with the plain version across the
-two hard thresholds (see the source note).
+``composite_bwd`` replaces ``_bwd_kernel`` with ``csrc/composite_bwd.cu``: per
+tile a reverse walk of the chunks the forward walked, α recomputed by the
+forward's own operations, T replayed from the checkpoints, and per pair the
+nine raw moment sums over the tile's 1024 pixels written into the tile's own
+region of the gradient address space (``binning.grad_base``).
+
+``CompositeSplats`` (``composite_splats_diff``) is the counterpart of the
+custom VJP ``composite_splats_pallas``: checkpointed forward; backward kernel
+→ segment sum (``ops/kernels/segsum.py``) → the per-splat quad-basis combine.
+
+What bounds the two kernels: operations.  Every live pair costs 1024 pixel
+updates of about 30 float operations and one ``expf`` (twice that in the
+backward, which replays a chunk before it walks it back, plus nine block-wide
+reductions per pair) against 32–40 bytes of payload.  Both sources are
+compiled without FMA contraction so that they agree with the plain versions —
+and with each other — across the two hard thresholds (see the source notes).
 
 Also here, as torch ops: ``pack2`` / ``unpack2`` and ``pack_payload`` (the
-8-row int32 payload of ``payload_dtype="packed"``).  The backward half, the
-transmittance checkpoints, wireframe, depth test and strided tiles belong to
-later slices.
+8-row int32 payload of ``payload_dtype="packed"``).  Wireframe, depth test
+and strided tiles belong to later slices.
 """
 
 from __future__ import annotations
@@ -30,36 +42,58 @@ import torch
 
 from ...utils.config import RenderConfig
 from ..covariance import ALPHA_CUTOFF, QUAD_EXTENT
+from ..rasterize_ref import round_bf16
 from . import _build
 
 TILE = 32          # the kernel's pixel tile is TILE×TILE
 P_ROWS = 10        # payload rows: cx cy ax ay bx by r g b op
 P_ROWS_PACKED = 8  # packed payload rows: [cx cy ax ay bx by (r,g) (b,op)]
+N_SUMS = 9         # gradient-space rows, the raw moment sums of one pair over
+                   # its tile's pixels: Σdp2·dx, Σdp2·dy, Σdp2·dx², Σdp2·dxdy,
+                   # Σdp2·dy², Σdc_r·w, Σdc_g·w, Σdc_b·w, Σdp2
+G_ROWS_PACKED = 8  # packed gradient-space rows (int32): the first six sums
+                   # bit-cast, (Σdc_g·w, Σdc_b·w) as two bf16 halves, Σdp2
 
-# Wrapper calls that launched the kernel.
+# Wrapper calls that launched the forward kernel (either variant), those of
+# them that wrote checkpoints, and calls that launched the backward kernel.
 launches = 0
+launches_checkpoint = 0
+launches_bwd = 0
 
-_lib = None
+_lib_fwd = None
+_lib_bwd = None
 
 
 def _library():
-    global _lib
-    if _lib is None:
+    global _lib_fwd
+    if _lib_fwd is None:
         lib = _build.load("composite_fwd")
         p = ctypes.c_void_p
         lib.gsplat_composite_fwd.argtypes = [
             p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            p, p, p, p, p, p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            p, p, p, p, p, p, p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_float, p,
         ]
         lib.gsplat_composite_fwd.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _lib_fwd = lib
+    return _lib_fwd
 
 
-def _round_bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(torch.float32)
+def _library_bwd():
+    global _lib_bwd
+    if _lib_bwd is None:
+        lib = _build.load("composite_bwd")
+        p = ctypes.c_void_p
+        lib.gsplat_composite_bwd.argtypes = [
+            p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            p, p, p, p, p, p, p, p, p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, p,
+        ]
+        lib.gsplat_composite_bwd.restype = ctypes.c_int
+        _lib_bwd = lib
+    return _lib_bwd
 
 
 def pack2(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -67,8 +101,8 @@ def pack2(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     rounded values): ``hi``'s top 16 bits (its bf16 encoding) in the high
     half, ``lo``'s in the low half.  Returns int32; exact round-trip with
     :func:`unpack2`."""
-    hb = _round_bf16(hi).contiguous().view(torch.int32)
-    lb = _round_bf16(lo).contiguous().view(torch.int32)
+    hb = round_bf16(hi).contiguous().view(torch.int32)
+    lb = round_bf16(lo).contiguous().view(torch.int32)
     return hb | ((lb >> 16) & 0xFFFF)
 
 
@@ -91,6 +125,12 @@ def pack_payload(fields: torch.Tensor) -> torch.Tensor:
         ],
         dim=0,
     )
+
+
+def max_chunks(config: RenderConfig) -> int:
+    """Chunks a tile can walk: φ can push a capacity-capped tile's span into
+    one extra chunk.  Sizes the checkpoint tensor statically."""
+    return config.tile_capacity // config.chunk + 1
 
 
 def _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config):
@@ -123,6 +163,91 @@ def _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height,
     return packed
 
 
+def _check_columns(fields, pair_splat):
+    """CPU path only: padding entries are in range by construction (binning
+    spreads them over real columns); checked where it costs no device
+    synchronisation."""
+    if pair_splat.numel() > 0 and fields.shape[1] > 0:
+        if int(pair_splat.min()) < 0 or int(pair_splat.max()) >= fields.shape[1]:
+            raise ValueError("pair_splat holds an out-of-range column")
+
+
+def _require_contiguous(**tensors):
+    for name, a in tensors.items():
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+class _PlainTiles:
+    """What the plain forward and backward share: pixel centres of every
+    tile and one pair position's α over them, by the same separately rounded
+    operations in the same order."""
+
+    def __init__(self, fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed):
+        dev = fields.device
+        f32 = torch.float32
+        self.fields, self.pair_splat, self.packed, self.config = fields, pair_splat, packed, config
+        self.phi, self.span = tile_phi, tile_span
+        self.base = tile_base.long()
+        self.p_len = pair_splat.shape[0]
+        tile_ids = torch.arange(nty * ntx, dtype=torch.int32, device=dev)
+        origin_x = ((tile_ids % ntx) * TILE).to(f32)
+        origin_y = (torch.div(tile_ids, ntx, rounding_mode="floor") * TILE).to(f32)
+        iota = torch.arange(TILE, dtype=f32, device=dev) + 0.5
+        self.px = origin_x[:, None, None] + iota[None, None, :]  # (T, 1, 32)
+        self.py = origin_y[:, None, None] + iota[None, :, None]  # (T, 32, 1)
+        self.max_alpha = torch.full((), config.max_alpha, dtype=f32, device=dev)
+
+    def pair(self, pos, active):
+        """Position ``pos`` of every tile's segment: ``(valid, alpha, dx, dy,
+        color)`` — (T,) bool, (T, 32, 32) f32 ×3 (dx, dy broadcastable) and
+        the (T, 3) colours."""
+        config = self.config
+        valid = active & (self.phi <= pos) & (self.span > pos)
+        idx = self.pair_splat[torch.clamp(self.base + pos, max=self.p_len - 1)].long()
+        f = self.fields[:, idx]  # (rows, T)
+        if self.packed:
+            geo = f[0:6].view(torch.float32)
+            cr, cg = unpack2(f[6])
+            cb, op_raw = unpack2(f[7])
+        else:
+            geo = f[0:6]
+            cr, cg, cb, op_raw = f[6], f[7], f[8], f[9]
+        col = _col
+        op = torch.where(valid, op_raw, 0.0)
+        dx = self.px - col(geo[0])
+        dy = self.py - col(geo[1])
+        qx = dx * col(geo[2]) + dy * col(geo[3])
+        qy = dx * col(geo[4]) + dy * col(geo[5])
+        qx2 = qx * qx
+        qy2 = qy * qy
+        power = qx2 + qy2
+        alpha = torch.minimum(torch.exp(-power) * col(op), self.max_alpha)
+        if not config.soft_cutoff:
+            inside = torch.maximum(qx2, qy2) <= QUAD_EXTENT * QUAD_EXTENT
+            alpha = torch.where(inside & (alpha >= ALPHA_CUTOFF), alpha, 0.0)
+        return valid, alpha, dx, dy, torch.stack([cr, cg, cb], dim=1)
+
+
+def _col(v):
+    return v[:, None, None]
+
+
+def _to_tiles(image, nty, ntx):
+    """(H, W, C) → (T, C, 32, 32), zero beyond the image's edge."""
+    h, w, c = image.shape
+    full = image.new_zeros((nty * TILE, ntx * TILE, c))
+    full[:h, :w] = image
+    return full.reshape(nty, TILE, ntx, TILE, c).permute(0, 2, 4, 1, 3).reshape(nty * ntx, c, TILE, TILE)
+
+
+def _from_tiles(tiles, nty, ntx, height, width):
+    """(T, C, 32, 32) → (H, W, C)."""
+    c = tiles.shape[1]
+    image = tiles.reshape(nty, ntx, c, TILE, TILE).permute(0, 3, 1, 4, 2).reshape(nty * TILE, ntx * TILE, c)
+    return image[:height, :width].contiguous()
+
+
 def composite_splats_plain(
     fields: torch.Tensor,
     pair_splat: torch.Tensor,
@@ -134,11 +259,15 @@ def composite_splats_plain(
     height: int,
     width: int,
     config: RenderConfig,
+    checkpoint: bool = False,
 ):
     """Plain PyTorch version of the compositing forward: a loop over chunk
     steps and, inside, over pair positions, vectorised over tiles and pixels,
     with the same base-aligned stop rule.  Returns ``(image, used)``:
-    (H, W, 4) float32 premultiplied RGBA and the (T,) int32 stop counter.
+    (H, W, 4) float32 premultiplied RGBA and the (T,) int32 stop counter; with
+    ``checkpoint=True`` also the ``(T, max_chunks, 1024)`` transmittance at
+    the top of every chunk a tile walked (zeros elsewhere), pixels row-major
+    within the tile.
 
     The loop bounds are read to the host (one read for the chunk count, one
     per chunk for "any tile still walking")."""
@@ -147,58 +276,27 @@ def composite_splats_plain(
     f32 = torch.float32
     num_tiles = nty * ntx
     chunk = config.chunk
-    n = fields.shape[1]
-    p_len = pair_splat.shape[0]
-
-    tile_ids = torch.arange(num_tiles, dtype=torch.int32, device=dev)
-    origin_x = ((tile_ids % ntx) * TILE).to(f32)
-    origin_y = (torch.div(tile_ids, ntx, rounding_mode="floor") * TILE).to(f32)
-    iota = torch.arange(TILE, dtype=f32, device=dev) + 0.5
-    px = origin_x[:, None, None] + iota[None, None, :]  # (T, 1, 32)
-    py = origin_y[:, None, None] + iota[None, :, None]  # (T, 32, 1)
+    tiles = _PlainTiles(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed)
 
     acc = torch.zeros((num_tiles, 3, TILE, TILE), dtype=f32, device=dev)
     trans = torch.ones((num_tiles, TILE, TILE), dtype=f32, device=dev)
     walked = torch.zeros((num_tiles,), dtype=torch.int32, device=dev)
     alive = torch.ones((num_tiles,), dtype=torch.bool, device=dev)
     nchunks = torch.div(tile_span + (chunk - 1), chunk, rounding_mode="floor")
-    max_chunks = int(nchunks.max()) if num_tiles > 0 else 0
-    base = tile_base.long()
-    max_alpha = torch.full((), config.max_alpha, dtype=f32, device=dev)
+    n_steps = int(nchunks.max()) if num_tiles > 0 else 0
+    tchk = None
+    if checkpoint:
+        tchk = torch.zeros((num_tiles, max_chunks(config), TILE * TILE), dtype=f32, device=dev)
 
-    def col(v):
-        return v[:, None, None]
-
-    for ci in range(max_chunks):
+    for ci in range(n_steps):
         active = alive & (nchunks > ci)
         if not bool(active.any()):
             break
+        if checkpoint:
+            tchk[:, ci] = torch.where(active[:, None], trans.reshape(num_tiles, -1), 0.0)
         for i in range(chunk):
-            pos = ci * chunk + i
-            valid = active & (tile_phi <= pos) & (tile_span > pos)
-            idx = pair_splat[torch.clamp(base + pos, max=p_len - 1)].long()
-            f = fields[:, idx]  # (rows, T)
-            if packed:
-                geo = f[0:6].view(f32)
-                cr, cg = unpack2(f[6])
-                cb, op_raw = unpack2(f[7])
-            else:
-                geo = f[0:6]
-                cr, cg, cb, op_raw = f[6], f[7], f[8], f[9]
-            op = torch.where(valid, op_raw, 0.0)
-            dx = px - col(geo[0])
-            dy = py - col(geo[1])
-            qx = dx * col(geo[2]) + dy * col(geo[3])
-            qy = dx * col(geo[4]) + dy * col(geo[5])
-            qx2 = qx * qx
-            qy2 = qy * qy
-            power = qx2 + qy2
-            alpha = torch.minimum(torch.exp(-power) * col(op), max_alpha)
-            if not config.soft_cutoff:
-                inside = torch.maximum(qx2, qy2) <= QUAD_EXTENT * QUAD_EXTENT
-                alpha = torch.where(inside & (alpha >= ALPHA_CUTOFF), alpha, 0.0)
+            _, alpha, _, _, color = tiles.pair(ci * chunk + i, active)
             w = alpha * trans
-            color = torch.stack([cr, cg, cb], dim=1)  # (T, 3)
             acc = acc + w[:, None] * color[:, :, None, None]
             trans = trans * (1.0 - alpha)
         walked = torch.where(active, ci + 1, walked)
@@ -206,13 +304,10 @@ def composite_splats_plain(
         alive = torch.where(active, still, alive)
 
     used = torch.minimum(tile_span, walked * chunk).to(torch.int32)
-    tiles = torch.cat([acc, (1.0 - trans)[:, None]], dim=1)  # (T, 4, 32, 32)
-    image = (
-        tiles.reshape(nty, ntx, 4, TILE, TILE)
-        .permute(0, 3, 1, 4, 2)
-        .reshape(nty * TILE, ntx * TILE, 4)
-    )
-    return image[:height, :width].contiguous(), used
+    image = _from_tiles(torch.cat([acc, (1.0 - trans)[:, None]], dim=1), nty, ntx, height, width)
+    if checkpoint:
+        return image, used, tchk
+    return image, used
 
 
 def composite_splats(
@@ -226,6 +321,7 @@ def composite_splats(
     height: int,
     width: int,
     config: RenderConfig,
+    checkpoint: bool = False,
 ):
     """Composite every tile's pair segment front to back.
 
@@ -241,47 +337,325 @@ def composite_splats(
       nty, ntx, height, width: tile grid and image size.
       config: ``chunk``, ``max_alpha``, ``transmittance_eps``, ``soft_cutoff``,
         ``payload_dtype``.
+      checkpoint: also return the transmittance checkpoints the backward
+        replays from.
 
     Returns:
       ``(image, used)``: (H, W, 4) float32 premultiplied RGBA (alpha = 1 − T)
-      and the (T,) int32 stop counter ``min(span, chunks_walked·chunk)``.
+      and the (T,) int32 stop counter ``min(span, chunks_walked·chunk)``; with
+      ``checkpoint=True`` also ``tchk``, ``(T, max_chunks, 1024)`` float32 —
+      every pixel's T at the top of chunk ``ci`` for ``ci < ceil(used/chunk)``
+      (pixels row-major within the tile; entries of chunks never walked are
+      unspecified).  Image and ``used`` do not depend on ``checkpoint``.
 
     On CUDA tensors this launches the kernel (or raises); on CPU tensors it
     takes :func:`composite_splats_plain`.
     """
-    global launches
+    global launches, launches_checkpoint
     packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config)
     if not fields.is_cuda:
-        if pair_splat.numel() > 0 and fields.shape[1] > 0:
-            # Padding entries are in range by construction (binning spreads
-            # them over real columns); checked here, where it costs no
-            # device synchronisation.
-            if int(pair_splat.min()) < 0 or int(pair_splat.max()) >= fields.shape[1]:
-                raise ValueError("pair_splat holds an out-of-range column")
+        _check_columns(fields, pair_splat)
         return composite_splats_plain(
-            fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config
+            fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
+            checkpoint=checkpoint,
         )
-    for name, a in (("fields", fields), ("pair_splat", pair_splat), ("tile_base", tile_base),
-                    ("tile_phi", tile_phi), ("tile_span", tile_span)):
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _require_contiguous(fields=fields, pair_splat=pair_splat, tile_base=tile_base,
+                        tile_phi=tile_phi, tile_span=tile_span)
     if (P_ROWS + 1) * config.chunk * 4 > 48 * 1024:
         raise ValueError(f"chunk={config.chunk} exceeds the kernel's shared memory")
     dev = fields.device
     num_tiles = nty * ntx
     image = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
     used = torch.empty((num_tiles,), dtype=torch.int32, device=dev)
+    n_chk = max_chunks(config)
+    tchk = None
+    if checkpoint:
+        tchk = torch.empty((num_tiles, n_chk, TILE * TILE), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.gsplat_composite_fwd(
             fields.data_ptr(), fields.shape[1], int(packed), int(config.soft_cutoff),
             pair_splat.data_ptr(), tile_base.data_ptr(), tile_phi.data_ptr(),
             tile_span.data_ptr(), image.data_ptr(), used.data_ptr(),
-            nty, ntx, height, width, config.chunk,
+            tchk.data_ptr() if checkpoint else None,
+            nty, ntx, height, width, config.chunk, n_chk,
             config.max_alpha, config.transmittance_eps,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"gsplat_composite_fwd launch failed: CUDA error {err}")
     launches += 1
+    if checkpoint:
+        launches_checkpoint += 1
+        return image, used, tchk
     return image, used
+
+
+def _check_bwd(used, grad_base, d_out, tchk, g_pad, num_tiles, height, width, config, device):
+    for name, a in (("used", used), ("grad_base", grad_base)):
+        if a.dtype != torch.int32 or tuple(a.shape) != (num_tiles,):
+            raise TypeError(f"{name}: expected ({num_tiles},) int32, got {tuple(a.shape)} {a.dtype}")
+    if d_out.dtype != torch.float32 or tuple(d_out.shape) != (height, width, 4):
+        raise TypeError(f"d_out: expected ({height}, {width}, 4) float32, got {tuple(d_out.shape)} {d_out.dtype}")
+    want = (num_tiles, max_chunks(config), TILE * TILE)
+    if tchk.dtype != torch.float32 or tuple(tchk.shape) != want:
+        raise TypeError(f"tchk: expected {want} float32, got {tuple(tchk.shape)} {tchk.dtype}")
+    if g_pad % config.chunk != 0 or g_pad <= 0:
+        raise ValueError(f"g_pad={g_pad} must be a positive multiple of chunk")
+    for a in (used, grad_base, d_out, tchk):
+        if a.device != device:
+            raise ValueError("all compositor inputs must live on one device")
+
+
+def composite_bwd_plain(
+    fields: torch.Tensor,
+    pair_splat: torch.Tensor,
+    tile_base: torch.Tensor,
+    tile_phi: torch.Tensor,
+    tile_span: torch.Tensor,
+    used: torch.Tensor,
+    grad_base: torch.Tensor,
+    d_out: torch.Tensor,
+    tchk: torch.Tensor,
+    g_pad: int,
+    nty: int,
+    ntx: int,
+    height: int,
+    width: int,
+    config: RenderConfig,
+) -> torch.Tensor:
+    """Plain PyTorch version of the compositing backward, vectorised over
+    tiles and pixels: chunks in reverse, each replayed forward from its
+    checkpoint (α and T of every position kept for the walk back), then walked
+    back with the suffix accumulator ``u``.  Returns the gradient space (see
+    :func:`composite_bwd`)."""
+    packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config)
+    num_tiles = nty * ntx
+    _check_bwd(used, grad_base, d_out, tchk, g_pad, num_tiles, height, width, config, fields.device)
+    dev = fields.device
+    f32 = torch.float32
+    chunk = config.chunk
+    tiles = _PlainTiles(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed)
+
+    gspace = torch.zeros((N_SUMS, g_pad), dtype=f32, device=dev)
+    d_tiles = _to_tiles(d_out, nty, ntx)  # off-image pixels: exact zeros
+    dc_r, dc_g, dc_b = d_tiles[:, 0], d_tiles[:, 1], d_tiles[:, 2]
+    u = -d_tiles[:, 3]
+    nused = torch.div(used + (chunk - 1), chunk, rounding_mode="floor")
+    n_steps = int(nused.max()) if num_tiles > 0 else 0
+    gbase = grad_base.long()
+
+    for ci in reversed(range(n_steps)):
+        active = nused > ci
+        # Forward replay of the chunk, by the forward's own operations.
+        t_cur = torch.where(active[:, None], tchk[:, ci], 1.0).reshape(num_tiles, TILE, TILE)
+        memo = []
+        for i in range(chunk):
+            valid, alpha, dx, dy, color = tiles.pair(ci * chunk + i, active)
+            memo.append((valid, alpha, t_cur, dx, dy, color))
+            t_cur = t_cur * (1.0 - alpha)
+        any_valid = torch.stack([m[0].any() for m in memo]).tolist()
+        for i in reversed(range(chunk)):
+            if not any_valid[i]:
+                continue
+            valid, alpha, t_i, dx, dy, color = memo[i]
+            w_i = alpha * t_i
+            k_i = _col(color[:, 0]) * dc_r + _col(color[:, 1]) * dc_g + _col(color[:, 2]) * dc_b
+            ku = k_i - u
+            d_alpha = t_i * ku
+            # The max_alpha clamp and (hard mode) the inside/cutoff mask stop
+            # the flow from dα to (power, opacity).
+            live = alpha < config.max_alpha
+            if not config.soft_cutoff:
+                live = live & (alpha > 0.0)
+            ga = torch.where(live, d_alpha, 0.0)
+            dp2 = -2.0 * ga * alpha
+            dp2dx = dp2 * dx
+            dp2dy = dp2 * dy
+            sums = torch.stack(
+                [
+                    dp2dx.sum(dim=(1, 2)), dp2dy.sum(dim=(1, 2)),
+                    (dp2dx * dx).sum(dim=(1, 2)), (dp2dx * dy).sum(dim=(1, 2)),
+                    (dp2dy * dy).sum(dim=(1, 2)),
+                    (dc_r * w_i).sum(dim=(1, 2)), (dc_g * w_i).sum(dim=(1, 2)),
+                    (dc_b * w_i).sum(dim=(1, 2)),
+                    dp2.sum(dim=(1, 2)),
+                ]
+            )  # (9, T)
+            u = u + alpha * ku
+            cols = (gbase + (ci * chunk + i))[valid]
+            gspace[:, cols] = sums[:, valid]
+
+    if packed:
+        return torch.cat(
+            [
+                gspace[0:6].view(torch.int32),
+                pack2(gspace[6:7], gspace[7:8]),
+                gspace[8:9].view(torch.int32),
+            ],
+            dim=0,
+        )
+    return gspace
+
+
+def composite_bwd(
+    fields: torch.Tensor,
+    pair_splat: torch.Tensor,
+    tile_base: torch.Tensor,
+    tile_phi: torch.Tensor,
+    tile_span: torch.Tensor,
+    used: torch.Tensor,
+    grad_base: torch.Tensor,
+    d_out: torch.Tensor,
+    tchk: torch.Tensor,
+    g_pad: int,
+    nty: int,
+    ntx: int,
+    height: int,
+    width: int,
+    config: RenderConfig,
+) -> torch.Tensor:
+    """Backward of :func:`composite_splats` up to the per-pair moment sums.
+
+    Args beyond the forward's: ``used`` and ``tchk`` as the checkpointed
+    forward returned them, ``grad_base`` (``ops/binning.py``), the cotangent
+    ``d_out`` (H, W, 4) float32 and ``g_pad`` (``binning.grad_pad_size``).
+
+    Returns the gradient address space: ``(9, g_pad)`` float32 whose column
+    ``grad_base[t] + pos`` holds, for position ``pos`` of tile ``t``'s
+    segment, the sums over the tile's 1024 pixels in the row order of
+    ``N_SUMS``; for ``payload_dtype="packed"`` the ``(8, g_pad)`` int32 rows
+    ``[Σdp2·dx Σdp2·dy Σdp2·dx² Σdp2·dxdy Σdp2·dy² Σdc_r·w (Σdc_g·w, Σdc_b·w)
+    Σdp2]`` with the pair in row 6 rounded to bf16 (nearest even) and the rest
+    bit-cast.  Positions before ``phi``, from ``used`` on, and every column no
+    tile owns hold exact zeros.
+
+    On CUDA tensors this launches the kernel (or raises); on CPU tensors it
+    takes :func:`composite_bwd_plain`.
+    """
+    global launches_bwd
+    packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config)
+    num_tiles = nty * ntx
+    _check_bwd(used, grad_base, d_out, tchk, g_pad, num_tiles, height, width, config, fields.device)
+    if not fields.is_cuda:
+        _check_columns(fields, pair_splat)
+        return composite_bwd_plain(
+            fields, pair_splat, tile_base, tile_phi, tile_span, used, grad_base, d_out, tchk,
+            g_pad, nty, ntx, height, width, config,
+        )
+    _require_contiguous(fields=fields, pair_splat=pair_splat, tile_base=tile_base, tile_phi=tile_phi,
+                        tile_span=tile_span, used=used, grad_base=grad_base, d_out=d_out, tchk=tchk)
+    if config.chunk % 8 != 0:
+        raise ValueError("the backward kernel walks a chunk in sub-blocks of 8 pairs")
+    dev = fields.device
+    # Zero-filled once: chunks the forward never walked are never touched.
+    rows, dt = (G_ROWS_PACKED, torch.int32) if packed else (N_SUMS, torch.float32)
+    gspace = torch.zeros((rows, g_pad), dtype=dt, device=dev)
+    lib = _library_bwd()
+    with torch.cuda.device(dev):
+        err = lib.gsplat_composite_bwd(
+            fields.data_ptr(), fields.shape[1], int(packed), int(config.soft_cutoff),
+            pair_splat.data_ptr(), tile_base.data_ptr(), tile_phi.data_ptr(), tile_span.data_ptr(),
+            used.data_ptr(), grad_base.data_ptr(), d_out.data_ptr(), tchk.data_ptr(),
+            gspace.data_ptr(), g_pad,
+            nty, ntx, height, width, config.chunk, max_chunks(config),
+            config.max_alpha, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gsplat_composite_bwd launch failed: CUDA error {err}")
+    launches_bwd += 1
+    return gspace
+
+
+class CompositeSplats(torch.autograd.Function):
+    """Differentiable payload read + compositing (the counterpart of the JAX
+    package's custom VJP ``composite_splats_pallas``).  Gradients flow to
+    ``fields`` only.  On CPU tensors the same graph runs through the plain
+    versions of the three kernels."""
+
+    @staticmethod
+    def forward(ctx, fields, pair_splat, tile_base, tile_phi, tile_span, grad_base,
+                dest_of_exp, exp_offsets, exp_counts, order, nty, ntx, height, width, config):
+        if config.wireframe:
+            raise ValueError(
+                "wireframe mode is forward-only (the band test has no useful gradient)"
+            )
+        # Packing to int32 happens here, inside the function: an int32 tensor
+        # carries no gradient.
+        if config.payload_dtype == "packed":
+            payload = pack_payload(fields)
+        else:
+            payload = fields[:P_ROWS].contiguous()
+        image, used, tchk = composite_splats(
+            payload, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
+            checkpoint=True,
+        )
+        ctx.save_for_backward(fields, payload, pair_splat, tile_base, tile_phi, tile_span, used,
+                              grad_base, dest_of_exp, exp_offsets, exp_counts, tchk)
+        ctx.order = order
+        ctx.geometry = (nty, ntx, height, width, config)
+        return image
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..binning import grad_pad_size
+        from .segsum import segsum_by_splat
+
+        (fields, payload, pair_splat, tile_base, tile_phi, tile_span, used,
+         grad_base, dest_of_exp, exp_offsets, exp_counts, tchk) = ctx.saved_tensors
+        nty, ntx, height, width, config = ctx.geometry
+        packed = config.payload_dtype == "packed"
+        g_pad = grad_pad_size(dest_of_exp.shape[0], nty * ntx, config.chunk)
+        gspace = composite_bwd(
+            payload, pair_splat, tile_base, tile_phi, tile_span, used, grad_base,
+            g.to(torch.float32).contiguous(), tchk, g_pad, nty, ntx, height, width, config,
+        )
+        # Per-splat raw-moment sums (9, N), in the order of ``fields``.
+        m = segsum_by_splat(gspace, dest_of_exp, exp_offsets, exp_counts, order=ctx.order, packed=packed)
+        # Quad-basis combine, once per splat (linear in the moments with
+        # per-splat coefficients, so it commutes with the pair summation the
+        # segment sum just performed).
+        u_x, u_y = m[0], m[1]
+        t_xx, t_xy, t_yy = m[2], m[3], m[4]
+        s_dp2 = m[8]
+        ax, ay = fields[2], fields[3]
+        bx, by = fields[4], fields[5]
+        op = fields[9]
+        s_dqx = ax * u_x + ay * u_y
+        s_dqy = bx * u_x + by * u_y
+        # dop = Σ ga·α / op, and Σga·α = −Σdp2/2.  Binning culls opacity below
+        # 1/255, so the divide is safe for real pairs.
+        d_fields = torch.stack(
+            [
+                -(ax * s_dqx + bx * s_dqy),
+                -(ay * s_dqx + by * s_dqy),
+                ax * t_xx + ay * t_xy,
+                ax * t_xy + ay * t_yy,
+                bx * t_xx + by * t_xy,
+                bx * t_xy + by * t_yy,
+                m[5],
+                m[6],
+                m[7],
+                (-0.5) * s_dp2 * (1.0 / torch.clamp(op, min=1e-20)),
+            ],
+            dim=0,
+        )
+        if fields.shape[0] > P_ROWS:
+            d_fields = torch.cat(
+                [d_fields, d_fields.new_zeros((fields.shape[0] - P_ROWS, d_fields.shape[1]))], dim=0
+            )
+        return (d_fields,) + (None,) * 14
+
+
+def composite_splats_diff(fields, binned, nty, ntx, height, width, config, order=None):
+    """Differentiable compositing of float ``(≥10, N)`` field rows over the
+    pairs of ``binned`` (``bin_splats(..., with_grad_map=True)``).  Returns
+    the (H, W, 4) image.  ``order``: the depth permutation when ``fields`` is
+    in storage order (``bin_splats(..., order=...)``)."""
+    if binned.dest_of_exp is None:
+        raise ValueError("composite_splats_diff needs bin_splats(..., with_grad_map=True)")
+    return CompositeSplats.apply(
+        fields, binned.pair_splat, binned.tile_base, binned.tile_phi, binned.tile_span,
+        binned.grad_base, binned.dest_of_exp, binned.exp_offsets, binned.exp_counts,
+        order, nty, ntx, height, width, config,
+    )

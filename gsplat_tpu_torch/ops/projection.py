@@ -38,7 +38,7 @@ from .covariance import (
     LAMBDA2_MIN,
     QUAD_EXTENT,
 )
-from .sh import SH_C1, SH_C2, SH_C3
+from .sh import SH_C1, SH_C2, SH_C3, max0
 
 N_FIELDS = 16
 ROW_CX, ROW_CY = 0, 1
@@ -94,8 +94,10 @@ class ProjectedSplats:
 
 def _rotation_scale_rows(orient: torch.Tensor, scale: torch.Tensor):
     """M = S·R entries as 9 (N,) expressions."""
-    qx, qy, qz, qw = orient[0], orient[1], orient[2], orient[3]
-    sx, sy, sz = scale[0], scale[1], scale[2]
+    # unbind, not row indexing: one stack in the backward instead of a
+    # full-size zero tensor and an accumulation per row
+    qx, qy, qz, qw = orient.unbind(0)
+    sx, sy, sz = scale.unbind(0)
     one = 1.0
     m00 = sx * (one - 2.0 * (qy * qy + qz * qz))
     m01 = sx * (2.0 * (qx * qy + qw * qz))
@@ -142,7 +144,7 @@ def project_splats(
     view = camera.view.to(f32)
     proj = camera.proj.to(f32)
     pos = splats.pos.to(f32)
-    px_, py_, pz_ = pos[0], pos[1], pos[2]
+    px_, py_, pz_ = pos.unbind(0)
 
     # --- center projection + viewport ---
     def xform3(m, x, y, z):
@@ -277,11 +279,13 @@ def project_splats(
         grey = torch.full_like(color[0], 0.5)
         r_, g_, b_ = grey, grey, grey
     else:
-        r_, g_, b_ = color[0], color[1], color[2]
+        r_, g_, b_ = color.unbind(0)
     if sh_order > 0:
         inv_n = torch.rsqrt(torch.clamp(depth_sq, min=1e-24))
         dxn, dyn, dzn = tx * inv_n, ty * inv_n, tz * inv_n
-        sh = splats.sh.to(f32)
+        # (45, N) → 45 rows by one unbind: indexing row by row would cost the
+        # backward a (45, N) zero tensor and a (45, N) add for every row used
+        sh = splats.sh.to(f32).unbind(0)
 
         terms = [(-SH_C1 * dyn, 0), (SH_C1 * dzn, 1), (-SH_C1 * dxn, 2)]
         if sh_order >= 2:
@@ -309,9 +313,9 @@ def project_splats(
             r_ = r_ + basis * sh[3 * j + 0]
             g_ = g_ + basis * sh[3 * j + 1]
             b_ = b_ + basis * sh[3 * j + 2]
-        r_ = torch.clamp(r_, min=0.0)
-        g_ = torch.clamp(g_, min=0.0)
-        b_ = torch.clamp(b_, min=0.0)
+        r_ = max0(r_)
+        g_ = max0(g_)
+        b_ = max0(b_)
 
     opacity = splats.opacity.to(f32)
     zeros = torch.zeros_like(opacity)

@@ -45,11 +45,24 @@ def sanitize_projected(p: ProjectedSplats) -> ProjectedSplats:
     return ProjectedSplats(fields=fields)
 
 
+class _RoundBF16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
-    """f32 → bf16-rounded f32 (round to nearest even).  PyTorch runs eagerly
-    and never elides the convert pair, so the plain cast is the JAX package's
-    integer-bit ``round_bf16`` bit for bit on finite values."""
-    return x.to(torch.bfloat16).to(torch.float32)
+    """f32 → bf16-rounded f32 (round to nearest even) with a STRAIGHT-THROUGH
+    gradient, as the JAX package's ``round_bf16`` (identity VJP).  PyTorch
+    runs eagerly and never elides the convert pair, so the plain cast is the
+    JAX package's integer-bit rounding bit for bit on finite values; but
+    autograd through the cast pair would round the *cotangent* to bf16 on the
+    way back, so the backward is spelled out as the identity."""
+    return _RoundBF16.apply(x)
 
 
 def quantize_payload(p: ProjectedSplats, config) -> ProjectedSplats:

@@ -16,6 +16,14 @@ SH_C2 = (1.0925484, -1.0925484, 0.3153916, -1.0925484, 0.5462742)
 SH_C3 = (-0.5900436, 2.8906114, -0.4570458, 0.3731763, -0.4570458, 1.4453057, -0.5900436)
 
 
+def max0(x: torch.Tensor) -> torch.Tensor:
+    """``max(x, 0)`` whose gradient at a tie (``x == 0`` exactly) is split in
+    half, as ``jnp.maximum``'s is in the JAX package; ``torch.clamp`` would
+    pass it whole.  The tie is a real input: a black splat with zero SH
+    coefficients evaluates to exactly 0."""
+    return torch.where(x == 0.0, 0.5 * x, torch.clamp(x, min=0.0))
+
+
 def shade_sh(
     base_color: torch.Tensor,
     sh: torch.Tensor,
@@ -63,4 +71,4 @@ def shade_sh(
                     + (SH_C3[5] * z * (xx - yy)) * sh[..., 13, :]
                     + (SH_C3[6] * x * (xx - 3.0 * yy)) * sh[..., 14, :]
                 )
-    return torch.clamp(res, min=0.0)
+    return max0(res)

@@ -8,7 +8,11 @@ Backends:
     compositing go through the kernel wrappers (``ops/kernels``).  On CUDA
     tensors the wrappers launch the hand-written kernels; on CPU tensors they
     take their plain PyTorch versions, so a CPU run walks the same code up to
-    the launch.
+    the launch.  Differentiable: when gradients are enabled and a splat
+    tensor requires one, the binning also builds the gradient map and the
+    compositing runs as ``CompositeSplats`` (checkpointed forward kernel;
+    backward kernel → segment-sum kernel → per-splat combine).  A render
+    that needs no gradient pays for none of that.
   * ``"tiles"``    — plain-PyTorch tiled compositing (mid oracle).
   * ``"reference"``— O(N·H·W) per-pixel oracle (ground truth).
   * ``"auto"``     — ``"cuda"``.  Nothing probes for a card and quietly picks
@@ -30,7 +34,7 @@ from .ops.binning import (
     tile_grid,
     warn_if_dropped,
 )
-from .ops.kernels.composite import composite_splats, pack_payload
+from .ops.kernels.composite import composite_splats, composite_splats_diff, pack_payload
 from .ops.projection import project_splats
 from .ops.rasterize_ref import quantize_payload, render_reference, sanitize_projected
 from .ops.rasterize_tiles import permute_fields, render_tiles, sort_by_depth
@@ -53,8 +57,13 @@ def render_cuda(
     if config.tile_h != 32 or config.tile_w != 32:
         raise ValueError("the cuda backend requires tile_h == tile_w == 32")
     height, width = camera.height, camera.width
+    leaves = (splats.pos, splats.orient, splats.scale, splats.opacity, splats.color, splats.sh)
+    need_grad = torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
     if splats.count == 0:
         image = torch.zeros((height, width, 4), dtype=torch.float32, device=splats.device)
+        if need_grad:
+            # an empty scene still hands a (zero) gradient back to its inputs
+            image = image + sum(t.sum() for t in leaves if t.requires_grad) * 0.0
         zero = torch.zeros((), dtype=torch.int32, device=splats.device)
         return (image, RenderStats(dropped_pairs=zero)) if with_stats else image
     projected = project_splats(
@@ -66,24 +75,27 @@ def render_cuda(
     # purely in rank space: within a tile's segment the payload columns the
     # compositor reads are then nearly ascending.
     p = sort_by_depth(p) if order is None else permute_fields(p, order, 14)
-    binned = bin_splats(p, width, height, config, with_tiles=False)
+    binned = bin_splats(p, width, height, config, with_tiles=False, with_grad_map=need_grad)
     nty, ntx = tile_grid(width, height, config.tile_h, config.tile_w)
-    if config.payload_dtype == "packed":
-        payload = pack_payload(p.fields)
+    if need_grad:
+        image = composite_splats_diff(p.fields[:10], binned, nty, ntx, height, width, config)
     else:
-        payload = p.fields[:10].contiguous()
-    image, _used = composite_splats(
-        payload,
-        binned.pair_splat,
-        binned.tile_base,
-        binned.tile_phi,
-        binned.tile_span,
-        nty,
-        ntx,
-        height,
-        width,
-        config,
-    )
+        if config.payload_dtype == "packed":
+            payload = pack_payload(p.fields)
+        else:
+            payload = p.fields[:10].contiguous()
+        image, _used = composite_splats(
+            payload,
+            binned.pair_splat,
+            binned.tile_base,
+            binned.tile_phi,
+            binned.tile_span,
+            nty,
+            ntx,
+            height,
+            width,
+            config,
+        )
     # After the last launch is queued: the only host read of the frame.
     warn_if_dropped(binned, config)
     if with_stats:

@@ -1,0 +1,104 @@
+"""Image losses for splat fitting: L1 + DSSIM, the standard 3DGS objective
+(counterpart of ``gsplat_tpu.train.loss``; ``ssim_strip`` and its halo belong
+to the multi-GPU slice).
+
+The separable 11-tap Gaussian filter of SSIM is a depthwise
+``torch.nn.functional.conv2d`` (the JAX package leaves it to XLA's
+convolution, outside any kernel).  On the card cuDNN would run a float32
+convolution in TF32 (about three decimal digits) by default, so the filter
+switches ``torch.backends.cudnn.allow_tf32`` off around its calls, in the
+forward and in its own backward (the adjoint of a SAME-padded filter with a
+symmetric window is the same filter with the padding mirrored), and the loss
+stays float32 throughout.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(pred - target))
+
+
+@functools.lru_cache(maxsize=4)
+def _gaussian_window(size: int, sigma: float) -> np.ndarray:
+    x = np.arange(size, dtype=np.float32) - (size - 1) / 2.0
+    g = np.exp(-(x**2) / (2.0 * sigma**2))
+    return g / np.sum(g)
+
+
+def _conv_hw(x: torch.Tensor, window: torch.Tensor, pad_lo: int, pad_hi: int) -> torch.Tensor:
+    """(C, H, W) filtered by ``window`` along H, then along W; full float32."""
+    c = x.shape[0]
+    k = window.shape[0]
+    kh = window.reshape(1, 1, k, 1).expand(c, 1, k, 1)
+    kw = window.reshape(1, 1, 1, k).expand(c, 1, 1, k)
+    with torch.backends.cudnn.flags(allow_tf32=False):
+        y = F.conv2d(F.pad(x[None], (0, 0, pad_lo, pad_hi)), kh, groups=c)
+        y = F.conv2d(F.pad(y, (pad_lo, pad_hi, 0, 0)), kw, groups=c)
+    return y[0]
+
+
+class _Filter2dSeparable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, window):
+        k = window.shape[0]
+        ctx.save_for_backward(window)
+        return _conv_hw(x, window, (k - 1) // 2, k // 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        (window,) = ctx.saved_tensors
+        k = window.shape[0]
+        return _conv_hw(g.contiguous(), torch.flip(window, (0,)), k // 2, (k - 1) // 2), None
+
+
+def _filter2d_separable(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
+    """Depthwise separable 2-D convolution, SAME (zero) padding.  img: (H, W, C)."""
+    return _Filter2dSeparable.apply(img.permute(2, 0, 1).contiguous(), window).permute(1, 2, 0)
+
+
+def ssim(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    window_size: int = 11,
+    sigma: float = 1.5,
+    c1: float = 0.01**2,
+    c2: float = 0.03**2,
+) -> torch.Tensor:
+    """Mean SSIM over an (H, W, C) image pair in [0, 1]."""
+    w = torch.from_numpy(_gaussian_window(window_size, sigma)).to(pred.device)
+    mu_p = _filter2d_separable(pred, w)
+    mu_t = _filter2d_separable(target, w)
+    mu_pp = mu_p * mu_p
+    mu_tt = mu_t * mu_t
+    mu_pt = mu_p * mu_t
+    var_p = _filter2d_separable(pred * pred, w) - mu_pp
+    var_t = _filter2d_separable(target * target, w) - mu_tt
+    cov = _filter2d_separable(pred * target, w) - mu_pt
+    num = (2.0 * mu_pt + c1) * (2.0 * cov + c2)
+    den = (mu_pp + mu_tt + c1) * (var_p + var_t + c2)
+    return torch.mean(num / den)
+
+
+def render_loss(
+    pred_rgb: torch.Tensor,
+    target_rgb: torch.Tensor,
+    lambda_dssim: float = 0.2,
+    use_ssim: bool = True,
+) -> torch.Tensor:
+    """The 3DGS objective: (1−λ)·L1 + λ·(1−SSIM)."""
+    loss = (1.0 - lambda_dssim) * l1_loss(pred_rgb, target_rgb)
+    if use_ssim and lambda_dssim > 0.0:
+        loss = loss + lambda_dssim * (1.0 - ssim(pred_rgb, target_rgb))
+    return loss
+
+
+def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    mse = torch.mean(torch.square(pred - target))
+    return -10.0 * torch.log10(torch.clamp(mse, min=1e-12))

@@ -98,9 +98,19 @@ def test_empty_scene_bins_nothing():
 
 
 def test_with_grad_map_is_the_training_slice():
+    """The gradient map is built only when asked for (training), and asking
+    for it changes none of the forward arrays."""
     f = jax_sorted_fields(*jax_scene(n=400, seed=1), BASE)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tbin.bin_splats(t_projected(f), 64, 64, to_config(BASE), with_grad_map=True)
+    plain = tbin.bin_splats(t_projected(f), 64, 64, to_config(BASE))
+    mapped = tbin.bin_splats(t_projected(f), 64, 64, to_config(BASE), with_grad_map=True)
+    budget = to_config(BASE).pair_budget(400)
+    for name, length in (("dest_of_exp", budget), ("exp_rank", budget), ("exp_offsets", 400), ("exp_counts", 400)):
+        assert getattr(plain, name) is None
+        got = getattr(mapped, name)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (length,), name
+    for name in ("pair_splat", "pair_tile", "tile_start", "tile_count", "tile_base", "tile_phi", "tile_span",
+                 "grad_base", "dropped_pairs"):
+        assert torch.equal(getattr(plain, name), getattr(mapped, name)), name
 
 
 @pytest.mark.parametrize("w,h,th,tw", [(64, 64, 32, 32), (70, 45, 32, 32), (1920, 1080, 32, 32), (100, 30, 16, 8)])

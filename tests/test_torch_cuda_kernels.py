@@ -52,3 +52,103 @@ def test_render_kernel_path_matches_plain_renderers(card, payload, eps):
     tiles = gt.render(splats, cam, cfg, backend="tiles")
     tol = 1e-5 if eps == 0.0 else 2 * eps  # the tiled oracle never stops early
     assert float((main - tiles).abs().max()) < tol
+
+
+def _backward_case(card, payload, eps, soft=False):
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.ops.projection import project_splats
+    from gsplat_tpu_torch.ops.rasterize_ref import quantize_payload, sanitize_projected
+    from gsplat_tpu_torch.ops.rasterize_tiles import sort_by_depth
+
+    g = torch.Generator(device=card).manual_seed(1)
+    splats = gt.random_splats(g, 5000, extent=0.8, scale_range=(0.01, 0.05), sh_scale=0.2, device=card)
+    cam = gt.make_camera([0.2, 0.4, 3.0], [0, 0, 0], 200, 120, device=card)
+    cfg = gt.RenderConfig(payload_dtype=payload, transmittance_eps=eps, pairs_per_splat=8.0, soft_cutoff=soft)
+    p = project_splats(splats, cam, cfg.sh_order, tight_footprint=not soft)
+    p = sort_by_depth(quantize_payload(sanitize_projected(p), cfg))
+    b = binning.bin_splats(p, cam.width, cam.height, cfg, with_tiles=False, with_grad_map=True)
+    nty, ntx = binning.tile_grid(cam.width, cam.height, 32, 32)
+    pay = kcomp.pack_payload(p.fields) if payload == "packed" else p.fields[:10].contiguous()
+    fwd = (pay, b.pair_splat, b.tile_base, b.tile_phi, b.tile_span, nty, ntx, cam.height, cam.width, cfg)
+    d_out = torch.randn((cam.height, cam.width, 4), generator=g, device=card)
+    g_pad = binning.grad_pad_size(b.dest_of_exp.shape[0], nty * ntx, cfg.chunk)
+    return fwd, b, d_out, g_pad
+
+
+def _nine_rows(gspace, packed):
+    if not packed:
+        return gspace
+    cg, cb = kcomp.unpack2(gspace[6:7])
+    return torch.cat([gspace[0:6].view(torch.float32), cg, cb, gspace[7:8].view(torch.float32)])
+
+
+@pytest.mark.parametrize("payload", ["float32", "packed"])
+@pytest.mark.parametrize("eps", [0.0, 1e-3])
+def test_checkpoint_variant_is_bit_equal_and_backward_matches_plain(card, payload, eps):
+    from gsplat_tpu_torch.ops.kernels import segsum as ksegsum
+
+    fwd, b, d_out, g_pad = _backward_case(card, payload, eps)
+    packed = payload == "packed"
+    before = (kcomp.launches, kcomp.launches_checkpoint, kcomp.launches_bwd, ksegsum.launches)
+    image, used = kcomp.composite_splats(*fwd)
+    image_c, used_c, tchk = kcomp.composite_splats(*fwd, checkpoint=True)
+    assert torch.equal(image, image_c) and torch.equal(used, used_c)
+    args = fwd[:5] + (used_c, b.grad_base, d_out, tchk, g_pad) + fwd[5:]
+    got = kcomp.composite_bwd(*args)
+    m = ksegsum.segsum_by_splat(got, b.dest_of_exp, b.exp_offsets, b.exp_counts, packed=packed)
+    after = (kcomp.launches, kcomp.launches_checkpoint, kcomp.launches_bwd, ksegsum.launches)
+    assert after == (before[0] + 2, before[1] + 1, before[2] + 1, before[3] + 1)
+    want = kcomp.composite_bwd_plain(*args)
+    a, w = _nine_rows(got, packed), _nine_rows(want, packed)
+    for r in range(9):
+        scale = float(w[r].abs().max())
+        if packed and r in (6, 7):  # bf16 halves: one step of an 8-bit mantissa
+            assert bool(((a[r] - w[r]).abs() <= w[r].abs() * 2.0 ** -7 + 1e-5 * scale).all()), r
+        else:  # the same 1024 terms added in another order
+            assert float((a[r] - w[r]).abs().max()) <= 1e-5 * scale, r
+    m_plain = ksegsum.segsum_by_splat_plain(got, b.dest_of_exp, b.exp_offsets, b.exp_counts, packed=packed)
+    for r in range(9):
+        assert float((m[r] - m_plain[r]).abs().max()) <= 1e-6 * float(m_plain[r].abs().max()), r
+    assert torch.equal(m, ksegsum.segsum_by_splat(got, b.dest_of_exp, b.exp_offsets, b.exp_counts, packed=packed))
+
+
+@pytest.mark.parametrize("payload", ["float32", "packed"])
+def test_render_gradients_through_kernels_match_tiled_autograd(card, payload):
+    import dataclasses
+
+    g = torch.Generator(device=card).manual_seed(2)
+    splats = gt.random_splats(g, 1500, extent=0.8, sh_scale=0.2, device=card)
+    cam = gt.make_camera([0.2, 0.4, 3.0], [0, 0, 0], 200, 120, device=card)
+    cfg = gt.RenderConfig(tile_capacity=1024, transmittance_eps=0.0, payload_dtype=payload)
+    weights = torch.randn((120, 200, 4), generator=g, device=card)
+    fields = ("pos", "orient", "scale", "opacity", "color", "sh")
+
+    def grads(backend):
+        leaves = {f: getattr(splats, f).clone().requires_grad_(True) for f in fields}
+        (gt.render(dataclasses.replace(splats, **leaves), cam, cfg, backend=backend) * weights).sum().backward()
+        return {f: leaves[f].grad for f in fields}
+
+    main, tiles = grads("auto"), grads("tiles")
+    for f in fields:
+        tol = 2e-2 if (payload == "packed" and f in ("color", "sh")) else 2e-4
+        scale = max(1.0, float(tiles[f].abs().max()))
+        assert float((main[f] - tiles[f]).abs().max()) <= tol * scale, f
+
+
+def test_training_steps_on_the_card_launch_every_kernel(card):
+    from gsplat_tpu_torch.ops.kernels import segsum as ksegsum
+
+    g = torch.Generator(device=card).manual_seed(3)
+    splats = gt.random_splats(g, 20000, extent=0.8, scale_range=(0.01, 0.03), sh_scale=0.1, device=card)
+    cam = gt.make_camera([0.2, 0.4, 3.0], [0, 0, 0], 320, 200, device=card)
+    cfg = gt.RenderConfig(payload_dtype="packed", transmittance_eps=1e-3, pairs_per_splat=8.0)
+    with torch.no_grad():
+        img = gt.render(splats, cam, cfg)
+    target = torch.clamp(img[..., :3] + (1.0 - img[..., 3:4]) + 0.1, 0.0, 1.0)
+    params = gt.params_from_splats(splats)
+    step = gt.make_train_step(gt.default_optimizer(params), cam, cfg)
+    before = (kscan.launches, kcomp.launches_checkpoint, kcomp.launches_bwd, ksegsum.launches)
+    losses = [float(step(params, target)) for _ in range(4)]
+    after = (kscan.launches, kcomp.launches_checkpoint, kcomp.launches_bwd, ksegsum.launches)
+    assert after == (before[0] + 16, before[1] + 4, before[2] + 4, before[3] + 4)
+    assert all(x == x for x in losses) and losses[-1] < losses[0]
