@@ -16,11 +16,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              every gradient-space row within 1e-5 of the row's max, the packed
              bf16 halves within one bf16 step - the two sides add 1024 pixels
              in different orders; segment sum: within 1e-6 of the row's max
-             and bit-equal between two runs).
+             and bit-equal between two runs; the compositors' depth-test mode
+             and the forward's wireframe mode (hard and soft configs) by the
+             same gates; the ALU probe's float32 chains bit-equal to their
+             plain versions and its expf chain within 1e-6, at two link
+             counts, one link moving nearly every value and the values
+             hanging on their inputs; the gather probe's
+             float64 sums within 1e-9 of the summed magnitudes and its writes
+             bit-equal).  Every time below is taken by utils/profiling.py.
   reference  a small scene rendered through the main path against the
              plain tiled renderer and the O(N*H*W) oracle, and its gradient
              through the kernels against autograd through the plain tiled
-             renderer.
+             renderer; the same with the depth test against a slanted plane;
+             a small wireframe against the O(N*H*W) wireframe oracle.
   main_path  1,000,000 splats at 1920x1080, packed payload, eps 1e-3, pair
              budget tuned: five frames from an orbit through render(...,
              backend="auto", with_stats=True).  Launch counters are zeroed
@@ -32,16 +40,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
              scene with perturbed colours and positions.  Launch counters
              are zeroed just before and read just after.
   train_stages  one training step taken apart (where a step's time goes).
-  kernels    each kernel at the shapes (and, for the compositor, the very
-             inputs) of the main path: error against the plain version, its
-             time, the plain version's, a library call's where one exists,
-             and the least time the card could take (bound).
+  host_scene_path  the same scene composited into a host scene: float32
+             payload, the depth test against a slanted plane of view depth
+             2.0 -> 3.5 and an opaque grey scene colour; five frames, a check
+             that the plane kills pixels, one full-size gradient of an L1 loss
+             through the depth-tested render, three wireframe frames and three
+             wire-over frames.  Launch counters are zeroed just before each
+             part and read just after.
+  calibrate  the speed-of-light constants measured on this card
+             (gsplat_tpu_torch/utils/sol_calibrate.py: ALU probe, gather probe
+             on the main path's indices and on random ones, torch.sort, HBM
+             copy), then sol_ms and sol_fraction of the serving frame, the
+             training step and the host-scene frame.  Probe counters are
+             zeroed just before and read just after.
+  kernels    each kernel at the shapes (and, for the compositors, the very
+             inputs) of its path: error against the plain version, its time,
+             the plain version's, a library call's where one exists, and the
+             least time the card could take (bound, from utils/sol.py: the
+             data sheet's rates; bound_measured_ms at this run's rates).
 
 The last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -57,13 +80,17 @@ if not torch.cuda.is_available():
 
 import gsplat_tpu_torch as gt
 from gsplat_tpu_torch.ops import binning
+from gsplat_tpu_torch.ops import wireframe as wire
 from gsplat_tpu_torch.ops.kernels import _build
 from gsplat_tpu_torch.ops.kernels import composite as kcomp
+from gsplat_tpu_torch.ops.kernels import probes as kprobes
 from gsplat_tpu_torch.ops.kernels import scan as kscan
 from gsplat_tpu_torch.ops.kernels import segsum as ksegsum
-from gsplat_tpu_torch.ops.projection import project_splats
+from gsplat_tpu_torch.ops.projection import ROW_VIEWZ, project_splats
 from gsplat_tpu_torch.ops.rasterize_ref import quantize_payload, sanitize_projected
 from gsplat_tpu_torch.ops.rasterize_tiles import sort_by_depth
+from gsplat_tpu_torch.utils import profile_gather, sol, sol_calibrate
+from gsplat_tpu_torch.utils.profiling import PhaseTimer, cuda_time_ms, measure_fps, start_trace, stop_trace
 
 DEV = "cuda"
 IMAGE_TOL = 1e-5
@@ -82,22 +109,21 @@ GRAD_TOL = 2e-4
 GRAD_TOL_PACKED_COLOR = 2e-2
 SPLAT_FIELDS = ("pos", "orient", "scale", "opacity", "color", "sh")
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): the bounds below are
-# stated against them, whatever the card's power limit is set to.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-# float32 operations of one pixel update of the compositor, as the kernel's
-# source spells them out: dy (1), qx, qy (4), squares and power (3), exp (1),
-# *op (1), min (1), three tests and the select (4), alpha*T (1), three
-# multiply-adds into the accumulators (6), 1 - alpha and T * (2).
-FLOPS_PER_PIXEL_UPDATE = 24
-# float32 operations the backward needs for one pixel of one pair: alpha once
-# (15: the forward's count without its blend), T once (2), the weight and
-# K (6), K - u, d_alpha, the gate and dp2 (7), the two first and three second
-# moments (5), three colour products (3), the nine adds into the sums (9),
-# the update of u (2).  The kernel's second alpha evaluation (its replay) is
-# not counted: the bound is what the function needs, not what this design does.
-FLOPS_PER_PIXEL_BWD = 49
+# ALU probe against its plain chain: the two float32 chains bit for bit (the
+# fused link is exact in float64 and rounded once), the expf chain (torch.exp
+# against the kernel's expf, either may round a link differently) within
+# ALU_TOL relative to the value; gather probe sums in float64 in another
+# order, relative to the sum of the magnitudes.
+ALU_TOL = 1e-6
+GATHER_TOL = 1e-9
+# Wireframe kernel path against the O(N*H*W) oracle: the share of pixels at
+# band corners the binning box misses (see phase_reference).
+WIRE_EDGE_SHARE = 1e-3
+# Bounds: utils/sol.py, at the data sheet's rates (bound_ms) and at this
+# run's measured rates (bound_measured_ms) once the calibrate phase has run.
+DEVICE = dict(sol.H100)
+LINE_PX = 1.0
+TRACE_DIR = "build/traces"
 
 
 def emit(phase, **kw):
@@ -107,21 +133,6 @@ def emit(phase, **kw):
 def fail(msg):
     sys.stderr.write(f"chip_smoke: FAILED: {msg}\n")
     sys.exit(1)
-
-
-def time_ms(fn, reps, warmup=2):
-    """Mean milliseconds of fn(i) over `reps` calls, by CUDA events."""
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(reps):
-        fn(i)
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 # ----------------------------------------------------------------- scenes
@@ -142,20 +153,36 @@ def orbit_cameras(width, height, frames):
 
 
 def compositor_inputs(splats, cam, cfg, with_grad_map=False):
-    """The main path's own stages up to the compositor (render_cuda's)."""
+    """The main path's own stages up to the compositor (render_cuda's); with
+    cfg.depth_test the 15-row sort and the 11-row payload (row 10 = view-z)."""
     p = project_splats(splats, cam, cfg.sh_order, tight_footprint=not cfg.soft_cutoff, only_sh=cfg.only_sh)
-    p = sort_by_depth(quantize_payload(sanitize_projected(p), cfg))
+    p = sort_by_depth(quantize_payload(sanitize_projected(p), cfg), 15 if cfg.depth_test else 14)
     b = binning.bin_splats(p, cam.width, cam.height, cfg, with_tiles=False, with_grad_map=with_grad_map)
     nty, ntx = binning.tile_grid(cam.width, cam.height, cfg.tile_h, cfg.tile_w)
-    payload = kcomp.pack_payload(p.fields) if cfg.payload_dtype == "packed" else p.fields[:10].contiguous()
+    if cfg.payload_dtype == "packed":
+        payload = kcomp.pack_payload(p.fields)
+    elif cfg.depth_test:
+        payload = torch.cat([p.fields[:10], p.fields[ROW_VIEWZ:ROW_VIEWZ + 1]], dim=0).contiguous()
+    else:
+        payload = p.fields[:10].contiguous()
     args = (payload, b.pair_splat, b.tile_base, b.tile_phi, b.tile_span, nty, ntx, cam.height, cam.width, cfg)
     return args, b
 
 
-def compare_compositor(args, label):
-    img_k, used_k = kcomp.composite_splats(*args)
+def occluder(width, height):
+    """A slanted plane of view depth 2.0 -> 3.5 across the image and an opaque
+    grey scene colour (the JAX package's tests/test_depth_composite.py)."""
+    xs = torch.linspace(0, 1, width, device=DEV)[None, :]
+    bgd = ((2.0 + 1.5 * xs) * torch.ones((height, 1), device=DEV)).contiguous()
+    bg_rgba = torch.cat([torch.full((height, width, 3), 0.3, device=DEV),
+                         torch.ones((height, width, 1), device=DEV)], dim=-1)
+    return bgd, bg_rgba
+
+
+def compare_compositor(args, label, bgd=None):
+    img_k, used_k = kcomp.composite_splats(*args, bg_depth=bgd)
     torch.cuda.synchronize()
-    img_p, used_p = kcomp.composite_splats_plain(*args)
+    img_p, used_p = kcomp.composite_splats_plain(*args, bg_depth=bgd)
     torch.cuda.synchronize()
     if img_k.shape != img_p.shape or not torch.isfinite(img_k).all():
         fail(f"compositor {label}: bad output {tuple(img_k.shape)}")
@@ -171,8 +198,12 @@ def zero_counters():
     kscan.launches_by_kind.update(add=0, max=0)
     kcomp.launches = 0
     kcomp.launches_checkpoint = 0
+    kcomp.launches_depth = 0
+    kcomp.launches_wire = 0
     kcomp.launches_bwd = 0
+    kcomp.launches_bwd_depth = 0
     ksegsum.launches = 0
+    kprobes.launches.update({k: 0 for k in kprobes.launches})
 
 
 def read_counters():
@@ -182,9 +213,21 @@ def read_counters():
         "scan_i32": kscan.launches,
         "composite_fwd": kcomp.launches,
         "composite_fwd_checkpoint": kcomp.launches_checkpoint,
+        "composite_fwd_depth": kcomp.launches_depth,
+        "composite_fwd_wire": kcomp.launches_wire,
         "composite_bwd": kcomp.launches_bwd,
+        "composite_bwd_depth": kcomp.launches_bwd_depth,
         "segsum": ksegsum.launches,
+        "alu_probe": sum(kprobes.launches[v] for v in kprobes.ALU_VARIANTS),
+        "gather_probe": sum(kprobes.launches[a] for a in kprobes.GATHER_ACCESSES),
     }
+
+
+def expect_counts(**launched):
+    """Every counter 0 but those named."""
+    want = {k: 0 for k in read_counters()}
+    want.update(launched)
+    return want
 
 
 def backward_inputs(splats, cam, cfg, seed):
@@ -198,16 +241,16 @@ def backward_inputs(splats, cam, cfg, seed):
     return fwd, b, d_out, g_pad
 
 
-def compare_checkpoint(fwd, label):
+def compare_checkpoint(fwd, label, bgd=None):
     """The checkpoint variant: image and stop counters bit-equal to the
     variant without, checkpoints equal to the plain version's on the chunks
     a tile walked."""
-    img, used = kcomp.composite_splats(*fwd)
-    img_c, used_c, tchk = kcomp.composite_splats(*fwd, checkpoint=True)
+    img, used = kcomp.composite_splats(*fwd, bg_depth=bgd)
+    img_c, used_c, tchk = kcomp.composite_splats(*fwd, checkpoint=True, bg_depth=bgd)
     torch.cuda.synchronize()
     if not (torch.equal(img, img_c) and torch.equal(used, used_c)):
         fail(f"checkpoint variant {label}: image or stop counters differ from the variant without")
-    _, _, tchk_p = kcomp.composite_splats_plain(*fwd, checkpoint=True)
+    _, _, tchk_p = kcomp.composite_splats_plain(*fwd, checkpoint=True, bg_depth=bgd)
     chunk = fwd[-1].chunk
     nused = (used + chunk - 1) // chunk
     walked = torch.arange(tchk.shape[1], device=DEV)[None, :] < nused[:, None]
@@ -227,14 +270,14 @@ def gspace_rows(gspace, packed):
     return torch.cat([gspace[0:6].view(torch.float32), cg, cb, gspace[7:8].view(torch.float32)], dim=0)
 
 
-def compare_backward(fwd, b, used, tchk, d_out, g_pad, label):
+def compare_backward(fwd, b, used, tchk, d_out, g_pad, label, bgd=None):
     """composite_bwd against composite_bwd_plain, row by row."""
     cfg = fwd[-1]
     packed = cfg.payload_dtype == "packed"
     args = fwd[:5] + (used, b.grad_base, d_out, tchk, g_pad) + fwd[5:]
-    got = kcomp.composite_bwd(*args)
+    got = kcomp.composite_bwd(*args, bg_depth=bgd)
     torch.cuda.synchronize()
-    want = kcomp.composite_bwd_plain(*args)
+    want = kcomp.composite_bwd_plain(*args, bg_depth=bgd)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"composite_bwd {label}: output {tuple(got.shape)} {got.dtype}, plain {tuple(want.shape)} {want.dtype}")
@@ -293,9 +336,9 @@ def compare_segsum(gspace, b, packed, label):
     return worst, worst_abs
 
 
-def splat_grads(splats, cam, cfg, weights, backend):
+def splat_grads(splats, cam, cfg, weights, backend, bgd=None):
     leaves = {f: getattr(splats, f).detach().clone().requires_grad_(True) for f in SPLAT_FIELDS}
-    image = gt.render(dataclasses.replace(splats, **leaves), cam, cfg, backend=backend)
+    image = gt.render(dataclasses.replace(splats, **leaves), cam, cfg, backend=backend, background_depth=bgd)
     (image * weights).sum().backward()
     return {f: leaves[f].grad for f in SPLAT_FIELDS}
 
@@ -324,6 +367,67 @@ def phase_build(verbose):
     ksegsum._library()
     emit("build", seconds=round(time.time() - t0, 2), directory=str(out),
          sources=sorted(f"gsplat_tpu_torch/csrc/{n}.cu" for n in _build.EXTRA_FLAGS))
+
+
+def check_alu(x, steps, variant, label):
+    """The ALU probe at `steps` and at `steps` - 1 links against its plain
+    chain: the float32 chains bit for bit, the expf chain within ALU_TOL.
+    The comparison can fail: one link fewer must move nearly every value by
+    more than the tolerance (a float32 sum of eight chains can round back to
+    its old value, rarely), and the values must differ across x.  So a
+    kernel that ran fewer links, or lost its start, cannot pass.  Returns
+    (max abs err, max rel err) at `steps`."""
+    exact = variant != "expf"
+    tol = 0.0 if exact else ALU_TOL
+    out = []
+    for st in (steps, steps - 1):
+        got = kprobes.alu_probe(x, st, variant)
+        want = kprobes.alu_probe_plain(x, st, variant)
+        rel = float(((got - want).abs() / want.abs()).max())
+        if not torch.isfinite(got).all() or (exact and not torch.equal(got, want)) or not rel <= ALU_TOL:
+            fail(f"alu_probe[{variant}] {label}, {st} links: relative error {rel:.3e} "
+                 f"({'bit-equal required' if exact else f'tolerance {ALU_TOL}'})")
+        out.append((got, float((got - want).abs().max()), rel))
+    (got, err, rel), (fewer, _, _) = out
+    still = float(((fewer - got).abs() <= tol * got.abs()).float().mean())
+    if still > 1e-3:
+        fail(f"alu_probe[{variant}] {label}: one link fewer leaves {still:.2e} of the values within the tolerance")
+    if torch.unique(got).numel() <= min(x.numel() // 8, 1000):
+        fail(f"alu_probe[{variant}] {label}: the values hardly depend on x")
+    return err, rel
+
+
+def check_probes():
+    """Both probes against their plain versions at small and ragged shapes."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device=DEV)
+    g.manual_seed(7)
+    out = {"alu_max_rel_err": {}, "gather_max_abs_err": {}}
+    for n in (sms * kprobes.THREADS, 1000):
+        x = torch.rand((n,), generator=g, device=DEV) * 0.5 + 0.25
+        for variant in kprobes.ALU_VARIANTS:
+            _, rel = check_alu(x, 64, variant, f"n={n}")
+            out["alu_max_rel_err"][variant] = max(out["alu_max_rel_err"].get(variant, 0.0), rel)
+    for n_cols, p in ((1 << 16, 100_003), (1000, 7)):
+        mat = torch.randn((kprobes.PROBE_ROWS, n_cols), generator=g, device=DEV)
+        idx = torch.randint(0, n_cols, (p,), generator=g, device=DEV, dtype=torch.int32)
+        for access in kprobes.GATHER_ACCESSES:
+            m = mat.t().contiguous() if access == "row" else mat
+            if access == "column_write":
+                got = kprobes.gather_probe(torch.zeros_like(mat), idx, access)
+                want = kprobes.gather_probe_plain(torch.zeros_like(mat), idx, access)
+                err = 0.0 if torch.equal(got, want) else float((got - want).abs().max())
+                ok = err == 0.0
+            else:
+                got = float(kprobes.gather_probe(m, idx, access))
+                want = float(kprobes.gather_probe_plain(m, idx, access))
+                scale = float(kprobes.gather_probe_plain(m.abs(), idx, access))
+                err = abs(got - want)
+                ok = err <= GATHER_TOL * max(scale, 1.0)
+            if not ok:
+                fail(f"gather_probe[{access}] ({n_cols} columns, {p} queries) differs by {err:.3e}")
+            out["gather_max_abs_err"][access] = max(out["gather_max_abs_err"].get(access, 0.0), err)
+    return out
 
 
 def phase_checks():
@@ -382,10 +486,8 @@ def phase_checks():
                 check_backward(splats, cam, cfg, f"{w}x{h} {mode} eps={eps}")
     # An opaque scene of large splats, so that the tile-level early stop
     # fires in most tiles and `used` is a real test of the stop rule.
-    dense = dataclasses.replace(
-        bench_scene(100_000, seed=3),
-        opacity=torch.full((100_000,), 0.95, device=DEV),
-    )
+    dense = bench_scene(100_000, seed=3)
+    dense = dataclasses.replace(dense, opacity=torch.full_like(dense.opacity, 0.95))
     dense = dataclasses.replace(dense, scale=dense.scale * 3.0)
     cam = gt.make_camera(eye=[0.0, 0.4, 3.0], target=[0, 0, 0], width=640, height=360, device=DEV)
     for payload in ("float32", "packed"):
@@ -420,7 +522,59 @@ def phase_checks():
     compare_compositor(compositor_inputs(splats, small, cfg)[0], "70x45 float32 chunk=64")
     comp_cases += 1
     check_backward(splats, small, cfg, "70x45 float32 chunk=64")
+    # The depth test, forward and backward: a slanted plane through the
+    # splats, with one row of NaN depths (a NaN kills, as jnp.where does).
+    depth_cases = 0
+    # (hard/soft, eps) cases per image size
+    depth_cases_by_size = (((640, 360), ((False, 1e-3), (True, 0.0))), ((70, 45), ((False, 0.0), (True, 1e-3))))
+    for (w, h), cases in depth_cases_by_size:
+        cam = gt.make_camera(eye=[0.0, 0.4, 3.0], target=[0, 0, 0], width=w, height=h, device=DEV)
+        bgd, _ = occluder(cam.width, cam.height)
+        bgd[cam.height // 2] = float("nan")
+        for soft, eps in cases:
+            cfg = gt.RenderConfig(depth_test=True, soft_cutoff=soft, transmittance_eps=eps,
+                                  warn_on_drop=False, pairs_per_splat=8.0 if soft else 3.0)
+            label = f"depth {w}x{h} {'soft' if soft else 'hard'} eps={eps}"
+            args, b = compositor_inputs(splats, cam, cfg)
+            err, used = compare_compositor(args, label, bgd=bgd)
+            worst = max(worst, err)
+            stops += int((used < b.tile_span).sum())
+            comp_cases += 1
+            depth_cases += 1
+            fwd, bb, d_out, g_pad = backward_inputs(splats, cam, cfg, seed=41 + depth_cases)
+            used_c, tchk, e_chk = compare_checkpoint(fwd, label, bgd=bgd)
+            _, e_bwd, _ = compare_backward(fwd, bb, used_c, tchk, d_out, g_pad, label, bgd=bgd)
+            bwd["cases"] += 1
+            bwd["checkpoint_max_abs_err"] = max(bwd["checkpoint_max_abs_err"], e_chk)
+            bwd["bwd_worst_rel_err"] = max(bwd["bwd_worst_rel_err"], e_bwd)
+    # The wireframe band test: the wireframe pass's own inputs, two line
+    # widths, with and without the early stop; and the band test on a packed
+    # beauty payload, as render(config.wireframe=True) runs it.  (line_px,
+    # eps, soft) cases per image size.
+    wire_cases = 0
+    # A soft-cutoff config runs the same band test (the band reads no cutoff).
+    for (w, h), cases in (((640, 360), ((1.0, 1e-3, False), (2.5, 0.0, False), (1.0, 1e-3, True))),
+                          ((70, 45), ((1.0, 0.0, False),))):
+        cam = gt.make_camera(eye=[0.0, 0.4, 3.0], target=[0, 0, 0], width=w, height=h, device=DEV)
+        for line_px, eps, soft in cases:
+            cfg = gt.RenderConfig(transmittance_eps=eps, soft_cutoff=soft, warn_on_drop=False, pairs_per_splat=12.0)
+            args, b = wire._wireframe_inputs(splats, cam, cfg, line_px)
+            err, used = compare_compositor(args, f"wireframe {w}x{h} line_px={line_px} eps={eps} soft={soft}")
+            worst = max(worst, err)
+            stops += int((used < b.tile_span).sum())
+            comp_cases += 1
+            wire_cases += 1
+    for soft in (False, True):
+        cfg = gt.RenderConfig(payload_dtype="packed", wireframe=True, soft_cutoff=soft, transmittance_eps=1e-3,
+                              warn_on_drop=False, pairs_per_splat=8.0 if soft else 3.0)
+        err, _ = compare_compositor(compositor_inputs(splats, cam, cfg)[0],
+                                    f"wireframe band on a packed payload, soft={soft}")
+        worst = max(worst, err)
+        comp_cases += 1
+        wire_cases += 1
+    probe = check_probes()
     emit("checks", scan_cases=scan_cases, scan="bit-equal", compositor_cases=comp_cases,
+         depth_test_cases=depth_cases, wireframe_cases=wire_cases, probes=probe,
          compositor_max_abs_err=worst, tolerance=IMAGE_TOL, tiles_stopped_early=stops, used="equal",
          backward_cases=bwd["cases"], checkpoint_variant="image and used bit-equal",
          checkpoint_max_abs_err=bwd["checkpoint_max_abs_err"],
@@ -469,6 +623,53 @@ def phase_reference():
             grad_err[payload][f] = err / scale
         if max(float(g_tiles[f].abs().max()) for f in SPLAT_FIELDS) == 0.0:
             fail("reference scene has an all-zero gradient")
+    # Compositing into a host scene: the depth test through the kernels
+    # against the plain renderers, and its gradient.
+    bgd, bg_rgba = occluder(200, 120)
+    cfg = gt.RenderConfig(tile_capacity=1024, transmittance_eps=0.0)
+    main = gt.render(splats, cam, cfg, backend="auto", background_rgba=bg_rgba, background_depth=bgd)
+    tiles = gt.render(splats, cam, cfg, backend="tiles", background_rgba=bg_rgba, background_depth=bgd)
+    oracle = gt.render(splats, cam, cfg, backend="reference", background_rgba=bg_rgba, background_depth=bgd)
+    untested = gt.render(splats, cam, cfg, backend="auto", background_rgba=bg_rgba)
+    e_tiles = float((main - tiles).abs().max())
+    e_oracle = float((main - oracle).abs().max())
+    killed = float((main - untested).abs().max())
+    if not (e_tiles < IMAGE_TOL and e_oracle < IMAGE_TOL):
+        fail(f"reference depth test: main path vs tiles {e_tiles:.3e}, vs oracle {e_oracle:.3e}")
+    if not killed > 1e-3:
+        fail("reference depth test: the plane killed nothing")
+    out["depth_test"] = {"vs_tiles": e_tiles, "vs_oracle": e_oracle, "vs_untested": killed}
+    g_main = splat_grads(splats, cam, cfg, weights, "auto", bgd=bgd)
+    g_tiles = splat_grads(splats, cam, cfg, weights, "tiles", bgd=bgd)
+    grad_err["depth_test"] = {}
+    for f in SPLAT_FIELDS:
+        scale = max(1.0, float(g_tiles[f].abs().max()))
+        err = float((g_main[f] - g_tiles[f]).abs().max())
+        if not torch.isfinite(g_main[f]).all() or not err <= GRAD_TOL * scale:
+            fail(f"reference depth test: gradient of {f} differs by {err:.3e} (tolerance {GRAD_TOL} x {scale:.3e})")
+        grad_err["depth_test"][f] = err / scale
+    # The wireframe views against the O(N*H*W) wireframe oracle.  The oracle
+    # tests every pixel, the kernel path only the tiles a splat was binned
+    # to: its box (grown by line_px) can miss a band pixel at a rotated or
+    # faint splat's corner, where the JAX package's kernel and oracle differ
+    # alike.  So: equal but on at most WIRE_EDGE_SHARE of the pixels.
+    wcfg = dataclasses.replace(cfg, pairs_per_splat=12.0)
+    w_main = gt.render_wireframe(splats, cam, wcfg, line_px=LINE_PX, background=[0.2, 0.3, 0.4])
+    w_oracle = gt.render_wireframe(splats, cam, wcfg, line_px=LINE_PX, background=[0.2, 0.3, 0.4],
+                                   backend="reference")
+    differ = (w_main - w_oracle).abs().amax(dim=-1) > IMAGE_TOL
+    share = float(differ.float().mean())
+    if share > WIRE_EDGE_SHARE or float(w_main[..., 3].sum()) < 100:
+        fail(f"reference wireframe: kernel vs oracle differ on {share:.2e} of the pixels, "
+             f"covered {float(w_main[..., 3].sum())}")
+    over = gt.render_wire_over(splats, cam, wcfg, line_px=LINE_PX)
+    beauty = gt.render(splats, cam, wcfg, backend="tiles")
+    wire_k = gt.render_wireframe(splats, cam, wcfg, line_px=LINE_PX)
+    e_over = float((over - (wire_k + beauty * (1.0 - wire_k[..., 3:4]))).abs().max())
+    if not e_over < IMAGE_TOL:
+        fail(f"reference wire-over: kernel path vs its composition over the tiled beauty pass {e_over:.3e}")
+    out["wireframe"] = {"pixels_differing_from_oracle": int(differ.sum()), "share": share,
+                        "wire_over_vs_composition": e_over}
     emit("reference", splats=1500, size="200x120", tolerance=IMAGE_TOL, max_abs_err=out,
          grad_tolerance={"float32": GRAD_TOL, "packed": GRAD_TOL, "packed_color_sh": GRAD_TOL_PACKED_COLOR},
          grad_rel_err=grad_err)
@@ -489,22 +690,15 @@ def phase_main_path(n_splats, width, height, frames):
     zero_counters()
     times, images, dropped = [], [], []
     for cam in cams:
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        image, stats = gt.render(splats, cam, cfg, backend="auto", with_stats=True)
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
+        ms, (image, stats) = cuda_time_ms(lambda: gt.render(splats, cam, cfg, backend="auto", with_stats=True))
+        times.append(ms)
         images.append(image)
         dropped.append(int(stats.dropped_pairs))
     counts = read_counters()
     peak = torch.cuda.max_memory_allocated()
 
     # serving pays for no training: no checkpoints, no backward, no gradient map
-    want = {"scan_i32_add": frames, "scan_i32_max": frames, "scan_i32": 2 * frames, "composite_fwd": frames,
-            "composite_fwd_checkpoint": 0, "composite_bwd": 0, "segsum": 0}
+    want = expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames, composite_fwd=frames)
     if counts != want:
         fail(f"main path launch counts {counts}, expected {want}")
     if any(dropped):
@@ -529,7 +723,7 @@ def phase_main_path(n_splats, width, height, frames):
          dropped_pairs=dropped, warmup_frames=WARMUP_FRAMES, frame_ms=times,
          median_frame_ms=statistics.median(times), min_frame_ms=min(times),
          peak_memory_bytes=peak, covered_share=coverage, launches=counts)
-    return splats, cams, cfg, counts
+    return splats, cams, cfg, counts, statistics.median(times)
 
 
 def phase_stages(splats, cam, cfg, reps=7):
@@ -565,14 +759,7 @@ def phase_stages(splats, cam, cfg, reps=7):
     samples = {name: [] for name, _ in stages}
     for _ in range(reps):
         for name, fn in stages:
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            stop.record()
-            torch.cuda.synchronize()
-            samples[name].append(start.elapsed_time(stop))
+            samples[name].append(cuda_time_ms(fn)[0])
     med = {name: statistics.median(v) for name, v in samples.items()}
     emit("stages", reps=reps, median_ms=med, sum_ms=sum(med.values()))
 
@@ -609,21 +796,15 @@ def phase_train_path(splats, cam, cfg, steps):
     zero_counters()
     losses, times = [], []
     for _ in range(steps):
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        loss = step(params, target)
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1))
+        ms, loss = cuda_time_ms(lambda: step(params, target))
+        times.append(ms)
         losses.append(float(loss))
     counts = read_counters()
     peak = torch.cuda.max_memory_allocated()
 
-    want = {"scan_i32_add": steps, "scan_i32_max": 3 * steps, "scan_i32": 4 * steps,
-            "composite_fwd": steps, "composite_fwd_checkpoint": steps,
-            "composite_bwd": steps, "segsum": steps}
+    want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps,
+                         composite_fwd=steps, composite_fwd_checkpoint=steps,
+                         composite_bwd=steps, segsum=steps)
     if counts != want:
         fail(f"train path launch counts {counts}, expected {want}")
     if not all(math.isfinite(x) for x in warm + losses):
@@ -649,7 +830,7 @@ def phase_train_path(splats, cam, cfg, steps):
          median_step_ms=statistics.median(times), min_step_ms=min(times), peak_memory_bytes=peak,
          dropped_pairs=dropped, max_abs_move=moved_by, launches=counts,
          launches_per_step={k: v / steps for k, v in counts.items()})
-    return cfg, target, counts
+    return cfg, target, counts, statistics.median(times)
 
 
 def phase_train_stages(splats, cam, cfg, target, reps=3):
@@ -704,68 +885,266 @@ def phase_train_stages(splats, cam, cfg, target, reps=3):
     samples = {name: [] for name, _ in stages}
     for rep in range(reps + 1):
         for name, fn in stages:
-            torch.cuda.synchronize()
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            fn()
-            t1.record()
-            torch.cuda.synchronize()
+            ms, _ = cuda_time_ms(fn)
             if rep > 0:  # the first pass warms the allocator
-                samples[name].append(t0.elapsed_time(t1))
+                samples[name].append(ms)
     med = {name: statistics.median(v) for name, v in samples.items()}
     emit("train_stages", reps=reps, median_ms=med, sum_ms=sum(med.values()),
          note="composite_backward_total = backward kernel + segment sum + per-splat combine; "
               "their own times are on the kernels line")
 
 
-def phase_profile(label, units):
-    """Optional (--profile): torch.profiler over a few units of work (frames
-    or training steps, each a callable) — the device's busy share of the
-    window and the kernels that take most device time."""
-    from torch.profiler import ProfilerActivity, profile
+def check_frame(image, width, height, label):
+    if tuple(image.shape) != (height, width, 4) or image.dtype != torch.float32:
+        fail(f"{label}: image shape/dtype {tuple(image.shape)} {image.dtype}")
+    if not torch.isfinite(image).all():
+        fail(f"{label}: image holds non-finite values")
+    a = image[..., 3]
+    if float(a.min()) < 0.0 or float(a.max()) > 1.0:
+        fail(f"{label}: alpha outside [0, 1]: [{float(a.min())}, {float(a.max())}]")
 
+
+def phase_host_scene(splats, cams, frames, main_cfg):
+    """Compositing into a host scene at full size: the depth-tested beauty
+    pass (float32 payload, the plane occluder, the grey scene colour), its
+    gradient, and the wireframe and wire-over views."""
+    cam = cams[0]
+    width, height = cam.width, cam.height
+    n = splats.count
+    bgd, bg_rgba = occluder(width, height)
+    cfg = gt.RenderConfig(payload_dtype="float32", transmittance_eps=1e-3)
+    cfg = gt.tune_pair_budget(splats, cams, cfg, headroom=1.02)
+    dcfg = dataclasses.replace(cfg, depth_test=True)
+    out = {}
+
+    def frame(c):
+        return gt.render(splats, c, cfg, backend="auto", with_stats=True,
+                         background_rgba=bg_rgba, background_depth=bgd)
+
+    for k in range(WARMUP_FRAMES):
+        frame(cams[k % len(cams)])
+    zero_counters()
+    times, dropped, images = [], [], []
+    for c in cams[:frames]:
+        ms, (image, stats) = cuda_time_ms(lambda: frame(c))
+        times.append(ms)
+        dropped.append(int(stats.dropped_pairs))
+        images.append(image)
+    counts = read_counters()
+    want = expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames,
+                         composite_fwd=frames, composite_fwd_depth=frames)
+    if counts != want:
+        fail(f"host-scene frames: launch counts {counts}, expected {want}")
+    if any(dropped):
+        fail(f"host-scene frames: dropped_pairs {dropped}")
+    for image in images:
+        check_frame(image, width, height, "host-scene frame")
+        if float((image[..., 3] < 1.0 - 1e-6).float().mean()) > 1e-3:
+            fail("host-scene frame: the opaque scene colour left pixels uncovered")
+    untested = gt.render(splats, cam, cfg, backend="auto", background_rgba=bg_rgba)
+    killed = float((images[0] - untested).abs().max())
+    killed_share = float(((images[0] - untested).abs().amax(dim=-1) > 1e-6).float().mean())
+    if not killed > 1e-3:
+        fail(f"host-scene frame: the plane killed nothing (max|diff| {killed:.3e} against the untested frame)")
+    out["frames"] = {"frames": frames, "frame_ms": times, "median_frame_ms": statistics.median(times),
+                     "min_frame_ms": min(times), "dropped_pairs": dropped, "launches": counts,
+                     "vs_untested_max_abs": killed, "pixels_changed_share": killed_share}
+
+    # One full-size gradient of an L1 loss through the depth-tested render,
+    # towards the untested frame.
+    target = untested[..., :3].detach()
+    leaves = {f: getattr(splats, f).detach().clone().requires_grad_(True) for f in SPLAT_FIELDS}
+    zero_counters()
+
+    def grad_step():
+        image = gt.render(dataclasses.replace(splats, **leaves), cam, cfg, backend="auto",
+                          background_rgba=bg_rgba, background_depth=bgd)
+        loss = gt.l1_loss(image[..., :3], target)
+        loss.backward()
+        return loss
+
+    grad_ms, loss = cuda_time_ms(grad_step)
+    counts = read_counters()
+    want = expect_counts(scan_i32_add=1, scan_i32_max=3, scan_i32=4, composite_fwd=1,
+                         composite_fwd_checkpoint=1, composite_fwd_depth=1, composite_bwd=1,
+                         composite_bwd_depth=1, segsum=1)
+    if counts != want:
+        fail(f"host-scene gradient: launch counts {counts}, expected {want}")
+    grad_max = {}
+    for f in SPLAT_FIELDS:
+        g = leaves[f].grad
+        if g is None or not torch.isfinite(g).all():
+            fail(f"host-scene gradient of {f} missing or non-finite")
+        grad_max[f] = float(g.abs().max())
+    if max(grad_max.values()) == 0.0:
+        fail("host-scene gradient is all zero")
+    out["gradient"] = {"loss": float(loss.detach()), "ms": grad_ms, "grad_abs_max": grad_max, "launches": counts}
+
+    # The wireframe views; the budget fits the wireframe pass's own pairs
+    # (boxes grown by the line width, no exact-coverage cull).
+    wire_pairs = max(int(binning.count_pairs(wire._wireframe_projected(splats, c, LINE_PX), width, height,
+                                             dataclasses.replace(cfg, wireframe=True)))
+                     for c in cams[:3])
+    beauty_budget = main_cfg.pair_budget(n)
+    budget = max(beauty_budget, -(-int(wire_pairs * 1.02) // (1 << 17)) * (1 << 17))
+    wcfg = dataclasses.replace(main_cfg, pair_budget_override=budget)
+    for k in range(2):
+        gt.render_wireframe(splats, cams[k], wcfg, line_px=LINE_PX)
+        gt.render_wire_over(splats, cams[k], wcfg, line_px=LINE_PX)
+    # one frame a camera of the three, each between two CUDA events
+    zero_counters()
+    cam3 = itertools.cycle(cams[:3]).__next__
+    wire_fps = measure_fps(lambda: gt.render_wireframe(splats, cam3(), wcfg, line_px=LINE_PX),
+                           iters=3, warmup=0, device=bgd.device)
+    counts_w = read_counters()
+    zero_counters()
+    over_fps = measure_fps(lambda: gt.render_wire_over(splats, cam3(), wcfg, line_px=LINE_PX),
+                           iters=3, warmup=0, device=bgd.device)
+    counts_o = read_counters()
+    wire_imgs = [gt.render_wireframe(splats, c, wcfg, line_px=LINE_PX) for c in cams[:3]]
+    over_imgs = [gt.render_wire_over(splats, c, wcfg, line_px=LINE_PX) for c in cams[:3]]
+    if counts_w != expect_counts(scan_i32_add=3, scan_i32_max=3, scan_i32=6, composite_fwd=3, composite_fwd_wire=3):
+        fail(f"wireframe frames: launch counts {counts_w}")
+    if counts_o != expect_counts(scan_i32_add=6, scan_i32_max=6, scan_i32=12, composite_fwd=6, composite_fwd_wire=3):
+        fail(f"wire-over frames: launch counts {counts_o}")
+    args, b = wire._wireframe_inputs(splats, cam, wcfg, LINE_PX)
+    if int(b.dropped_pairs) != 0:
+        fail(f"wireframe: dropped_pairs {int(b.dropped_pairs)} with a budget of {budget}")
+    for img in wire_imgs + over_imgs:
+        check_frame(img, width, height, "wireframe")
+    covered = float((wire_imgs[0][..., 3] > 0.5).float().mean())
+    if not covered > 0.01:
+        fail(f"wireframe frame (nearly) empty: {covered:.4f} of the pixels covered")
+    out["wireframe"] = {"line_px": LINE_PX, "pair_budget": budget, "pairs": wire_pairs, "dropped_pairs": 0,
+                        "frames": wire_fps["iters"], "median_frame_ms": wire_fps["median_ms"],
+                        "covered_share": covered, "launches": counts_w}
+    out["wire_over"] = {"frames": over_fps["iters"], "median_frame_ms": over_fps["median_ms"], "launches": counts_o}
+    emit("host_scene_path", splats=n, size=f"{width}x{height}", payload_dtype=cfg.payload_dtype,
+         transmittance_eps=cfg.transmittance_eps, pair_budget=cfg.pair_budget(n),
+         occluder="view depth 2.0 -> 3.5 across the image, opaque grey 0.3", **out)
+    return dcfg, bgd, wcfg, out
+
+
+def pairs_walked(used, b):
+    """Live pair positions each tile walked before it stopped."""
+    return int((torch.minimum(used, b.tile_span) - torch.where(b.tile_span > 0, b.tile_phi, 0)).clamp(min=0).sum())
+
+
+def phase_calibrate(splats, cam, cfg, main_ms, train_cfg, step_ms, host_cfg, host_bgd, host_ms):
+    """The speed-of-light constants on this card, and the floor of a frame,
+    a training step and a host-scene frame at those rates."""
+    n = splats.count
+    args, b = compositor_inputs(splats, cam, cfg)
+    used = kcomp.composite_splats(*args)[1]
+    walked = pairs_walked(used, b)
+    zero_counters()
+    res = sol_calibrate.calibrate(pair_splat=b.pair_splat)
+    res["gather_random"] = sol_calibrate.gather_rates(
+        profile_gather.random_indices(b.pair_splat.numel(), device=b.pair_splat.device))
+    counts = read_counters()
+    if counts["alu_probe"] == 0 or counts["gather_probe"] == 0 or any(
+            v for k, v in counts.items() if k not in ("alu_probe", "gather_probe")):
+        fail(f"calibrate: launch counts {counts}")
+    by_probe = dict(kprobes.launches)
+    device = sol.device_from_calibration(res)
+    DEVICE.clear()
+    DEVICE.update(device)
+    hargs, hb = compositor_inputs(splats, cam, host_cfg)
+    host_walked = pairs_walked(kcomp.composite_splats(*hargs, bg_depth=host_bgd)[1], hb)
+    floors = {
+        "serving_frame": (sol.report(n, cam.width, cam.height, cfg.pair_budget(n), main_ms, fwd_only=True,
+                                     device=device, pairs_walked=walked),
+                          sol.speed_of_light(n, cam.width, cam.height, cfg.pair_budget(n), True, device, walked)),
+        "training_step": (sol.report(n, cam.width, cam.height, train_cfg.pair_budget(n), step_ms, fwd_only=False,
+                                     device=device, pairs_walked=walked),
+                          sol.speed_of_light(n, cam.width, cam.height, train_cfg.pair_budget(n), False, device,
+                                             walked)),
+        "host_scene_frame": (sol.report(n, cam.width, cam.height, host_cfg.pair_budget(n), host_ms, fwd_only=True,
+                                        device=device, pairs_walked=host_walked, mode="depth"),
+                             sol.speed_of_light(n, cam.width, cam.height, host_cfg.pair_budget(n), True, device,
+                                                host_walked, "depth")),
+    }
+    emit("calibrate", card=res["card"], sm_clock_hz=res["alu"]["sm_clock_hz"],
+         f32_issue_rate=device["f32_issue_rate"], mul_add_rate=device["mul_add_rate"],
+         expf_rate=device["expf_rate"], expf_sass_slots=res.get("expf_sass_slots"),
+         hbm_bytes_per_s=device["hbm_bw"], sort_pairs_per_s=device["sort_rate"],
+         alu=res["alu"], gather_path=res["gather"], gather_random=res["gather_random"], sort=res["sort"],
+         hbm=res["hbm"], launches=counts, launches_by_probe=by_probe,
+         sol={k: dict(v[0], achieved_ms=v[0]["sol_ms"] / v[0]["sol_fraction"],
+                      stages={s_: ms_ for s_, (ms_, _u) in v[1]["stages"].items()}) for k, v in floors.items()})
+    return res, by_probe
+
+
+def phase_profile(label, units):
+    """Optional (--profile): a torch.profiler trace (utils/profiling.py) over
+    a few units of work (frames or training steps, each a callable), written
+    under build/traces — the device's busy share of the window and the
+    kernels that take most device time."""
     units[0]()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        units[0]()  # absorbs the tracer's start-up
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for unit in units:
-            unit()
-        torch.cuda.synchronize()
-        t1 = time.time()
+    start_trace(TRACE_DIR)
+    units[0]()  # absorbs the tracer's start-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for unit in units:
+        unit()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    path = stop_trace()
     wall_ms = (t1 - t0) * 1e3
-    # Kernels (device-side events) only: an operator's event repeats the time
-    # of the kernels it launched.
+    # Device-side events only (kernels, copies, fills): an operator's event
+    # repeats the time of the kernels it launched.
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
     kernels = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
-        us = e.time_range.elapsed_us()
-        name = e.name
-        tot, cnt = kernels.get(name, (0.0, 0))
-        kernels[name] = (tot + us, cnt + 1)
+        tot, cnt = kernels.get(e["name"], (0.0, 0))
+        kernels[e["name"]] = (tot + float(e["dur"]), cnt + 1)
     total = len(units) + 1  # the traced window holds one extra unit
     top = sorted(((tot, name, cnt) for name, (tot, cnt) in kernels.items()), reverse=True)
     busy_ms = sum(t for t, _, _ in top) / 1e3 / total
     unit_ms = wall_ms / len(units)
-    emit("profile", of=label, units=len(units), unit_ms_traced=unit_ms, device_busy_ms_per_unit=busy_ms,
-         device_busy_share=busy_ms / unit_ms if unit_ms else None,
+    emit("profile", of=label, units=len(units), trace=path, unit_ms_traced=unit_ms,
+         device_busy_ms_per_unit=busy_ms, device_busy_share=busy_ms / unit_ms if unit_ms else None,
          kernel_launches_per_unit=sum(c for _, _, c in top) / total,
          note="unit_ms_traced is host wall time with the tracer on, longer than untraced",
          top=[{"name": name[:90], "device_ms_per_unit": tot / 1e3 / total, "calls_per_unit": cnt / total}
               for tot, name, cnt in top[:14]])
 
 
-def once_ms(fn):
-    """Host-clock milliseconds of one call that ends synchronised (for the
-    plain versions, which take seconds)."""
-    torch.cuda.synchronize()
-    t0 = time.time()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.time() - t0) * 1e3
+def compositor_bounds(walked, nbytes, kind, mode):
+    """A compositor row's bounds from utils/sol.py: issue slots at the data
+    sheet's rate (bound_ms), at this run's measured rates
+    (bound_measured_ms), and the earlier slices' flop bound."""
+    if kind == "fwd":
+        slots, n_expf, flops = sol.FWD_SLOTS[mode], sol.FWD_EXPF[mode], sol.FWD_FLOPS[mode]
+    else:
+        slots, n_expf, flops = sol.BWD_SLOTS[mode], 1, sol.BWD_FLOPS[mode]
+    b = sol.compositor_bound(walked * 1024, nbytes, slots, n_expf, flops, DEVICE)
+    return {"bound_ms": b["issue_datasheet_ms"], "bound_by": b["issue_datasheet_bound_by"],
+            "bound_measured_ms": b["issue_ms"], "bound_flops_ms": b["flops_datasheet_ms"],
+            "bound_bytes_ms": b["bytes_datasheet_ms"], "issue_slots": b["issue_slots"],
+            "bound_rule": f"{slots} slots + {n_expf} expf a pixel update (utils/sol.py)"}
+
+
+def bytes_bounds(nbytes):
+    b = sol.bytes_bound(nbytes, DEVICE)
+    return {"bound_ms": b["datasheet_ms"], "bound_by": "bytes", "bound_measured_ms": b["measured_ms"]}
+
+
+def compositor_row(name, source, replaces, launches, err, ms, plain_ms, walked, nbytes, kind, mode, **extra):
+    row = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    row.update(compositor_bounds(walked, nbytes, kind, mode))
+    row["library_ms"] = None
+    row.update(pairs_walked=walked, bytes=nbytes, **extra)
+    return row
+
+
+FWD_SRC = "gsplat_tpu_torch/csrc/composite_fwd.cu"
+BWD_SRC = "gsplat_tpu_torch/csrc/composite_bwd.cu"
 
 
 def phase_train_kernels(splats, cam, cfg, counts):
@@ -779,70 +1158,159 @@ def phase_train_kernels(splats, cam, cfg, counts):
 
     # checkpoint variant of the forward
     used, tchk, e_chk = compare_checkpoint(fwd, "train-path frame")
-    ms_chk = time_ms(lambda i: kcomp.composite_splats(*fwd, checkpoint=True), reps=10)
-    ms_nochk = time_ms(lambda i: kcomp.composite_splats(*fwd), reps=10)
-    _, plain_chk_ms = once_ms(lambda: kcomp.composite_splats_plain(*fwd, checkpoint=True))
-    walked = int((torch.minimum(used, b.tile_span) - torch.where(b.tile_span > 0, b.tile_phi, 0)).clamp(min=0).sum())
+    ms_chk = cuda_time_ms(lambda: kcomp.composite_splats(*fwd, checkpoint=True), 10, warmup=2)[0]
+    ms_nochk = cuda_time_ms(lambda: kcomp.composite_splats(*fwd), 10, warmup=2)[0]
+    plain_chk_ms, _ = cuda_time_ms(lambda: kcomp.composite_splats_plain(*fwd, checkpoint=True))
+    walked = pairs_walked(used, b)
     chunks_walked = int(((used + chunk - 1) // chunk).sum())
     in_bytes = (payload.numel() + pair_splat.numel() + 3 * b.tile_base.numel()) * 4
     img_bytes = cam.height * cam.width * 16
     chk_bytes = chunks_walked * 1024 * 4
-    ops_ms = walked * 1024 * FLOPS_PER_PIXEL_UPDATE / PEAK_F32_FLOPS * 1e3
-    bytes_ms = (in_bytes + img_bytes + used.numel() * 4 + chk_bytes) / PEAK_BYTES_PER_S * 1e3
-    rows.append({
-        "name": "composite_fwd_checkpoint", "route": "cuda", "source": "gsplat_tpu_torch/csrc/composite_fwd.cu",
-        "replaces": "gsplat_tpu/ops/pallas/composite.py:852", "launches": counts["composite_fwd_checkpoint"],
-        "max_abs_err": e_chk, "ms": ms_chk, "plain_ms": plain_chk_ms,
-        "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None, "ms_without_checkpoints": ms_nochk, "pairs_walked": walked,
-        "chunks_walked": chunks_walked, "checkpoint_bytes_written": chk_bytes,
-        "checkpoint_bytes_allocated": tchk.numel() * 4, "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-    })
+    rows.append(compositor_row(
+        "composite_fwd_checkpoint", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:852",
+        counts["composite_fwd_checkpoint"], e_chk, ms_chk, plain_chk_ms, walked,
+        in_bytes + img_bytes + used.numel() * 4 + chk_bytes, "fwd", "beauty",
+        ms_without_checkpoints=ms_nochk, chunks_walked=chunks_walked, checkpoint_bytes_written=chk_bytes,
+        checkpoint_bytes_allocated=tchk.numel() * 4))
 
     # backward compositor
     gspace, e_bwd, e_bwd_abs = compare_backward(fwd, b, used, tchk, d_out, g_pad, "train-path frame")
     bargs = fwd[:5] + (used, b.grad_base, d_out, tchk, g_pad) + fwd[5:]
-    ms_bwd = time_ms(lambda i: kcomp.composite_bwd(*bargs), reps=10)
-    _, plain_bwd_ms = once_ms(lambda: kcomp.composite_bwd_plain(*bargs))
-    ops_ms = walked * 1024 * FLOPS_PER_PIXEL_BWD / PEAK_F32_FLOPS * 1e3
+    ms_bwd = cuda_time_ms(lambda: kcomp.composite_bwd(*bargs), 10, warmup=2)[0]
+    plain_bwd_ms, _ = cuda_time_ms(lambda: kcomp.composite_bwd_plain(*bargs))
     nbytes = in_bytes + 2 * used.numel() * 4 + img_bytes + chk_bytes + gspace.numel() * 4
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    rows.append({
-        "name": "composite_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/composite_bwd.cu",
-        "replaces": "gsplat_tpu/ops/pallas/composite.py:853", "launches": counts["composite_bwd"],
-        "max_abs_err": e_bwd_abs, "max_abs_err_is": "float32 rows; the two bf16 halves are held to one bf16 step",
-        "worst_row_rel_err": e_bwd, "row_tolerance": GRAD_ROW_TOL,
-        "ms": ms_bwd, "plain_ms": plain_bwd_ms,
-        "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None, "pairs_walked": walked, "bytes": nbytes, "grad_space_columns": g_pad,
-        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-    })
+    rows.append(compositor_row(
+        "composite_bwd", BWD_SRC, "gsplat_tpu/ops/pallas/composite.py:853", counts["composite_bwd"],
+        e_bwd_abs, ms_bwd, plain_bwd_ms, walked, nbytes, "bwd", "beauty",
+        max_abs_err_is="float32 rows; the two bf16 halves are held to one bf16 step",
+        worst_row_rel_err=e_bwd, row_tolerance=GRAD_ROW_TOL, grad_space_columns=g_pad))
 
     # segment sum
     e_seg, e_seg_abs = compare_segsum(gspace, b, packed, "train-path frame")
     sargs = (gspace, b.dest_of_exp, b.exp_offsets, b.exp_counts)
-    ms_seg = time_ms(lambda i: ksegsum.segsum_by_splat(*sargs, packed=packed), reps=20)
-    plain_seg_ms = time_ms(lambda i: ksegsum.segsum_by_splat_plain(*sargs, packed=packed), reps=5)
+    ms_seg = cuda_time_ms(lambda: ksegsum.segsum_by_splat(*sargs, packed=packed), 20, warmup=2)[0]
+    plain_seg_ms = cuda_time_ms(lambda: ksegsum.segsum_by_splat_plain(*sargs, packed=packed), 5, warmup=2)[0]
     # The library yardstick: index_add_ of the already gathered expansion-order
     # columns by rank (the port never calls it on the card).
     keep = b.dest_of_exp >= 0
     cols = gspace_rows(gspace, packed)[:, torch.where(keep, b.dest_of_exp, 0).long()] * keep
     rank = torch.clamp(b.exp_rank, min=0).long()
     out = torch.zeros((9, n), device=DEV)
-    lib_ms = time_ms(lambda i: out.zero_().index_add_(1, rank, cols), reps=10)
+    lib_ms = cuda_time_ms(lambda: out.zero_().index_add_(1, rank, cols), 10, warmup=2)[0]
     kept = int(keep.sum())
     nbytes = kept * gspace.shape[0] * 4 + b.dest_of_exp.numel() * 4 + 2 * n * 4 + 9 * n * 4
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = kept * 9 / PEAK_F32_FLOPS * 1e3
-    rows.append({
-        "name": "segsum", "route": "cuda", "source": "gsplat_tpu_torch/csrc/segsum.cu",
-        "replaces": "gsplat_tpu/ops/pallas/segsum.py:148", "launches": counts["segsum"],
-        "max_abs_err": e_seg_abs, "worst_row_rel_err": e_seg, "row_tolerance": SEGSUM_TOL,
-        "ms": ms_seg, "plain_ms": plain_seg_ms,
-        "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": lib_ms, "library": "Tensor.index_add_ on pre-gathered columns",
-        "pairs_kept": kept, "pair_budget": b.dest_of_exp.numel(), "bytes": nbytes,
-    })
+    row = {"name": "segsum", "route": "cuda", "source": "gsplat_tpu_torch/csrc/segsum.cu",
+           "replaces": "gsplat_tpu/ops/pallas/segsum.py:148", "launches": counts["segsum"],
+           "max_abs_err": e_seg_abs, "ms": ms_seg, "plain_ms": plain_seg_ms}
+    row.update(bytes_bounds(nbytes))
+    row.update(library_ms=lib_ms, library="Tensor.index_add_ on pre-gathered columns",
+               worst_row_rel_err=e_seg, row_tolerance=SEGSUM_TOL, pairs_kept=kept,
+               pair_budget=b.dest_of_exp.numel(), bytes=nbytes)
+    rows.append(row)
+    return rows
+
+
+def phase_host_kernels(splats, cam, dcfg, bgd, wcfg, host_counts):
+    """The host-scene path's kernels at its own inputs: the forward with the
+    depth test, the backward with the depth test, the forward's wireframe
+    mode."""
+    rows = []
+    # forward with the depth test, at the frame's own inputs
+    args, b = compositor_inputs(splats, cam, dcfg)
+    err, used = compare_compositor(args, "host-scene frame", bgd=bgd)
+    ms = cuda_time_ms(lambda: kcomp.composite_splats(*args, bg_depth=bgd), 10, warmup=2)[0]
+    plain_ms, _ = cuda_time_ms(lambda: kcomp.composite_splats_plain(*args, bg_depth=bgd))
+    walked = pairs_walked(used, b)
+    in_bytes = (args[0].numel() + args[1].numel() + 3 * b.tile_base.numel()) * 4
+    img_bytes = cam.height * cam.width * 16
+    depth_bytes = cam.height * cam.width * 4
+    rows.append(compositor_row(
+        "composite_fwd_depth", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:271",
+        host_counts["frames"]["launches"]["composite_fwd_depth"], err, ms, plain_ms, walked,
+        in_bytes + depth_bytes + img_bytes + used.numel() * 4, "fwd", "depth",
+        variant="depth test (payload row 10 = view-z against the scene depth)",
+        pairs_binned=int(b.tile_count.sum()), tiles_stopped_early=int((used < b.tile_span).sum())))
+
+    # backward with the depth test
+    fwd, bb, d_out, g_pad = backward_inputs(splats, cam, dcfg, seed=51)
+    used_c, tchk, _ = compare_checkpoint(fwd, "host-scene frame", bgd=bgd)
+    gspace, e_bwd, e_bwd_abs = compare_backward(fwd, bb, used_c, tchk, d_out, g_pad, "host-scene frame", bgd=bgd)
+    bargs = fwd[:5] + (used_c, bb.grad_base, d_out, tchk, g_pad) + fwd[5:]
+    ms_bwd = cuda_time_ms(lambda: kcomp.composite_bwd(*bargs, bg_depth=bgd), 10, warmup=2)[0]
+    plain_bwd_ms, _ = cuda_time_ms(lambda: kcomp.composite_bwd_plain(*bargs, bg_depth=bgd))
+    walked_b = pairs_walked(used_c, bb)
+    chk_bytes = int(((used_c + dcfg.chunk - 1) // dcfg.chunk).sum()) * 1024 * 4
+    nbytes = (fwd[0].numel() + fwd[1].numel() + 3 * bb.tile_base.numel() + 2 * used_c.numel()) * 4 \
+        + depth_bytes + img_bytes + chk_bytes + gspace.numel() * 4
+    rows.append(compositor_row(
+        "composite_bwd_depth", BWD_SRC, "gsplat_tpu/ops/pallas/composite.py:853",
+        host_counts["gradient"]["launches"]["composite_bwd_depth"], e_bwd_abs, ms_bwd, plain_bwd_ms, walked_b,
+        nbytes, "bwd", "depth", worst_row_rel_err=e_bwd, row_tolerance=GRAD_ROW_TOL))
+
+    # the wireframe band test, at the wireframe pass's own inputs
+    wargs, wb = wire._wireframe_inputs(splats, cam, wcfg, LINE_PX)
+    err, used = compare_compositor(wargs, "wireframe frame")
+    ms = cuda_time_ms(lambda: kcomp.composite_splats(*wargs), 10, warmup=2)[0]
+    plain_ms, _ = cuda_time_ms(lambda: kcomp.composite_splats_plain(*wargs))
+    walked = pairs_walked(used, wb)
+    nbytes = (wargs[0].numel() + wargs[1].numel() + 3 * wb.tile_base.numel() + used.numel()) * 4 + img_bytes
+    rows.append(compositor_row(
+        "composite_fwd_wire", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:245",
+        host_counts["wireframe"]["launches"]["composite_fwd_wire"]
+        + host_counts["wire_over"]["launches"]["composite_fwd_wire"], err, ms, plain_ms, walked, nbytes,
+        "fwd", "wire", variant=f"wireframe band, line_px {LINE_PX}", pairs_binned=int(wb.tile_count.sum()),
+        tiles_stopped_early=int((used < wb.tile_span).sum())))
+    return rows
+
+
+def phase_probe_kernels(calib, by_probe, path_idx):
+    """The two probes at the calibrate phase's own shapes: error against the
+    plain versions, the calibrate phase's times, the plain versions' times."""
+    rows = []
+    alu = calib["alu"]
+    g = torch.Generator(device=DEV)
+    g.manual_seed(0)
+    x = torch.rand((alu["threads"],), generator=g, device=DEV) * 0.5 + 0.25
+    expf_slots = DEVICE["expf_slots"]
+    for variant in kprobes.ALU_VARIANTS:
+        st = alu[variant]["steps"]
+        err, rel = check_alu(x, st, variant, "at the calibration's shape")
+        plain_ms, _ = cuda_time_ms(lambda: kprobes.alu_probe_plain(x, st, variant))
+        work = kprobes.alu_ops(alu["threads"], st, variant)
+        # an expf link: the expf's slots and the subtraction's one
+        slots = work["issue_slots"] if "issue_slots" in work else work["links"] * (expf_slots + 1)
+        rows.append({
+            "name": f"alu_probe_{variant}", "route": "cuda", "source": "gsplat_tpu_torch/csrc/probes.cu",
+            "replaces": "scripts/sol_calibrate.py:52", "launches": by_probe[variant], "max_abs_err": err,
+            "max_rel_err": rel, "ms": alu[variant]["ms"], "plain_ms": plain_ms,
+            "bound_ms": slots / DEVICE["f32_issue_rate_datasheet"] * 1e3, "bound_by": "operations",
+            "bound_measured_ms": slots / DEVICE["f32_issue_rate"] * 1e3, "library_ms": None,
+            "threads": alu["threads"], "sms": alu["sms"], "steps": st, "links": work["links"],
+            "links_per_s": alu[variant]["links_per_s"], "links_per_sm_clock": alu[variant]["links_per_sm_clock"],
+            "sm_clock_hz": alu[variant]["sm_clock_hz"],
+            "bound_rule": "issue slots at 33.5e12/s (67 TFLOP/s / 2): FMA 1, mul+add 2, "
+                          "expf link its SASS count (the expf and the subtraction)",
+        })
+    for which, res in (("path", calib["gather"]), ("random", calib["gather_random"])):
+        idx = path_idx if which == "path" else profile_gather.random_indices(res["queries"], device=DEV)
+        mat = torch.randn((kprobes.PROBE_ROWS, res["columns"]), generator=g, device=DEV)
+        mats = {"row": mat.t().contiguous()}
+        for access in kprobes.GATHER_ACCESSES:
+            a = res[access]
+            m = mats.get(access, mat)
+            if access == "column_write":
+                plain = lambda: kprobes.gather_probe_plain(torch.zeros_like(mat), idx, access)
+            else:
+                plain = lambda: kprobes.gather_probe_plain(m, idx, access)
+            row = {"name": f"gather_probe_{access}_{which}", "route": "cuda",
+                   "source": "gsplat_tpu_torch/csrc/probes.cu", "replaces": "scripts/profile_dma_gather.py:152",
+                   "launches": by_probe[access], "launches_are": "both index sets of the calibrate phase",
+                   "max_abs_err": res["max_abs_err"][access], "ms": a["ms"], "plain_ms": cuda_time_ms(plain, 3, warmup=2)[0]}
+            row.update(bytes_bounds(a["bytes"]))
+            row.update(library_ms=a["library_ms"], library=a["library"], queries=res["queries"],
+                       columns=res["columns"], ns_per_query=a["ns_per_query"], bytes_per_s=a["bytes_per_s"],
+                       bytes=a["bytes"])
+            rows.append(row)
     return rows
 
 
@@ -871,46 +1339,33 @@ def phase_kernels(splats, cam, cfg, counts, train_counts):
         if err != 0:
             fail(f"scan_i32[{kind}] differs from its plain version at length {length}")
         lib = (lambda x: torch.cumsum(x, 0, dtype=torch.int32)) if kind == "add" else (lambda x: torch.cummax(x, 0).values)
-        ms = time_ms(lambda i: kscan.scan_i32(xs[i % nbuf], kind), reps=50)
-        plain_ms = time_ms(lambda i: kscan.scan_i32_plain(xs[i % nbuf], kind), reps=50)
-        library_ms = time_ms(lambda i: lib(xs[i % nbuf]), reps=50)
-        rows.append({
-            "name": f"scan_i32_{kind}", "route": "cuda", "source": "gsplat_tpu_torch/csrc/scan.cu",
-            "replaces": replaces, "launches": counts[f"scan_i32_{kind}"],
-            "launches_train_path": train_counts[f"scan_i32_{kind}"], "length": length,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 8.0 * length / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": library_ms,
-        })
+        nxt = itertools.cycle(xs).__next__
+        ms = cuda_time_ms(lambda: kscan.scan_i32(nxt(), kind), 50, warmup=2)[0]
+        plain_ms = cuda_time_ms(lambda: kscan.scan_i32_plain(nxt(), kind), 50, warmup=2)[0]
+        library_ms = cuda_time_ms(lambda: lib(nxt()), 50, warmup=2)[0]
+        row = {"name": f"scan_i32_{kind}", "route": "cuda", "source": "gsplat_tpu_torch/csrc/scan.cu",
+               "replaces": replaces, "launches": counts[f"scan_i32_{kind}"],
+               "launches_train_path": train_counts[f"scan_i32_{kind}"], "length": length,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        row.update(bytes_bounds(8.0 * length))
+        row["library_ms"] = library_ms
+        rows.append(row)
         del xs
 
     args, b = compositor_inputs(splats, cam, cfg)
     err, used = compare_compositor(args, "main-path frame")
-    ms = time_ms(lambda i: kcomp.composite_splats(*args), reps=10)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    kcomp.composite_splats_plain(*args)
-    torch.cuda.synchronize()
-    plain_ms = (time.time() - t0) * 1e3
+    ms = cuda_time_ms(lambda: kcomp.composite_splats(*args), 10, warmup=2)[0]
+    plain_ms, _ = cuda_time_ms(lambda: kcomp.composite_splats_plain(*args))
     # Work this frame's data needs: the live pair positions each tile walked
     # before it stopped, times 1024 pixels, and every input and output once.
-    walked = int((torch.minimum(used, b.tile_span) - torch.where(b.tile_span > 0, b.tile_phi, 0)).clamp(min=0).sum())
-    total_pairs = int(b.tile_count.sum())
+    walked = pairs_walked(used, b)
     payload, pair_splat = args[0], args[1]
     nbytes = (payload.numel() + pair_splat.numel() + 3 * b.tile_base.numel()) * 4 \
         + cam.height * cam.width * 16 + used.numel() * 4
-    ops_ms = walked * 1024 * FLOPS_PER_PIXEL_UPDATE / PEAK_F32_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    rows.append({
-        "name": "composite_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/composite_fwd.cu",
-        "replaces": "gsplat_tpu/ops/pallas/composite.py:817", "launches": counts["composite_fwd"],
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-        "pairs_binned": total_pairs, "pairs_walked": walked, "bytes": nbytes,
-        "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-        "tiles_stopped_early": int((used < b.tile_span).sum()),
-    })
+    rows.append(compositor_row(
+        "composite_fwd", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:817", counts["composite_fwd"], err, ms,
+        plain_ms, walked, nbytes, "fwd", "beauty", pairs_binned=int(b.tile_count.sum()),
+        tiles_stopped_early=int((used < b.tile_span).sum())))
     return rows
 
 
@@ -921,7 +1376,7 @@ def main():
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--steps", type=int, default=5, help="training steps after warm-up")
-    ap.add_argument("--stop-after", choices=("build", "checks", "reference"), default=None,
+    ap.add_argument("--stop-after", choices=("build", "checks", "reference", "host_scene"), default=None,
                     help="a short run: stop after this phase (prints no result line)")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print what ptxas reports for each kernel (registers, shared memory, spills)")
@@ -931,29 +1386,53 @@ def main():
     args = ap.parse_args()
 
     t0 = time.time()
+    timer = PhaseTimer()  # host seconds of every phase
+    phase = timer.phase
     card = phase_device()
-    phase_build(args.verbose_build)
+    with phase("build"):
+        phase_build(args.verbose_build)
     if args.stop_after == "build":
         return
-    phase_checks()
+    with phase("checks"):
+        phase_checks()
     if args.stop_after == "checks":
         return
-    phase_reference()
+    with phase("reference"):
+        phase_reference()
     if args.stop_after == "reference":
         return
-    splats, cams, cfg, counts = phase_main_path(args.splats, args.width, args.height, args.frames)
-    phase_stages(splats, cams[0], cfg)
+    with phase("main_path"):
+        splats, cams, cfg, counts, frame_ms = phase_main_path(args.splats, args.width, args.height, args.frames)
+    with phase("stages"):
+        phase_stages(splats, cams[0], cfg)
     if args.profile:
-        phase_profile("frame", [lambda cam=cam: gt.render(splats, cam, cfg, backend="auto") for cam in cams[:3]])
-    train_cfg, target, train_counts = phase_train_path(splats, cams[0], cfg, args.steps)
+        with phase("profile_frame"):
+            phase_profile("frame", [lambda cam=cam: gt.render(splats, cam, cfg, backend="auto") for cam in cams[:3]])
+    with phase("train_path"):
+        train_cfg, target, train_counts, step_ms = phase_train_path(splats, cams[0], cfg, args.steps)
     if args.profile:
-        params = gt.params_from_splats(splats)
-        step = gt.make_train_step(gt.default_optimizer(params), cams[0], train_cfg, backend="auto")
-        phase_profile("training step", [lambda: step(params, target)] * 3)
-    phase_train_stages(splats, cams[0], train_cfg, target)
-    rows = phase_kernels(splats, cams[0], cfg, counts, train_counts)
-    rows += phase_train_kernels(splats, cams[0], train_cfg, train_counts)
-    emit("done", seconds=round(time.time() - t0, 1))
+        with phase("profile_step"):
+            params = gt.params_from_splats(splats)
+            step = gt.make_train_step(gt.default_optimizer(params), cams[0], train_cfg, backend="auto")
+            phase_profile("training step", [lambda: step(params, target)] * 3)
+    with phase("train_stages"):
+        phase_train_stages(splats, cams[0], train_cfg, target)
+    del target
+    with phase("host_scene_path"):
+        dcfg, bgd, wcfg, host = phase_host_scene(splats, cams, args.frames, cfg)
+    if args.stop_after == "host_scene":
+        return
+    with phase("calibrate"):
+        path_idx = compositor_inputs(splats, cams[0], cfg)[1].pair_splat
+        calib, by_probe = phase_calibrate(
+            splats, cams[0], cfg, frame_ms, train_cfg, step_ms, dcfg, bgd, host["frames"]["median_frame_ms"])
+    with phase("kernels"):
+        rows = phase_kernels(splats, cams[0], cfg, counts, train_counts)
+        rows += phase_train_kernels(splats, cams[0], train_cfg, train_counts)
+        rows += phase_host_kernels(splats, cams[0], dcfg, bgd, wcfg, host)
+        rows += phase_probe_kernels(calib, by_probe, path_idx)
+    emit("done", seconds=round(time.time() - t0, 1),
+         phase_seconds={name: round(v["max_ms"] / 1e3, 1) for name, v in timer.summary().items()})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,11 @@ back to the CPU when the card is missing.
 
 Covered so far: the forward render (serving), its backward through
 hand-written kernels, and the single-device trainer (``train/``,
-``io/checkpoint.py``).  Sharding, wireframe, depth test, the scene registry
-and file I/O are later slices.
+``io/checkpoint.py``); compositing into a host scene (``background_depth``)
+and the wireframe views (``ops/wireframe.py``); the calibration probes and
+the H100 speed-of-light model (``utils/sol_calibrate.py``,
+``utils/profile_gather.py``, ``utils/sol.py``).  Sharding, the scene
+registry and file I/O are later slices.
 """
 
 from .version import __version__
@@ -35,6 +38,7 @@ from .ops.binning import RenderStats, report_stats
 from .ops.projection import ProjectedSplats, project_splats
 from .ops.rasterize_ref import render_reference
 from .ops.rasterize_tiles import depth_order, render_tiles
+from .ops.wireframe import render_wire_over, render_wireframe
 from .render import composite_over, measure_pairs, render, render_cuda, tune_pair_budget
 from .train.loss import l1_loss, psnr, render_loss, ssim
 from .train.params import (
@@ -54,6 +58,8 @@ __all__ = [
     "composite_over",
     "render_tiles",
     "render_reference",
+    "render_wireframe",
+    "render_wire_over",
     "__version__",
     "Camera",
     "make_camera",

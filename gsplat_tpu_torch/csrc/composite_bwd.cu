@@ -3,8 +3,8 @@
 // pixels into the tile's own region of the gradient address space.
 //
 // Replaces the TPU kernel gsplat_tpu/ops/pallas/composite.py:_bwd_kernel, for
-// strides 1 and no depth test.  What it computes is the same, by the same
-// identities:
+// strides 1, with and without the depth test (a template flag).  What it
+// computes is the same, by the same identities:
 //
 //   * chunks nused-1 .. 0 with nused = ceil(used / chunk); inside a chunk the
 //     positions [max(c0, phi), min(c0 + chunk, used)) are the tile's own;
@@ -19,6 +19,11 @@
 //       u <- u + alpha * (K - u);
 //     the flow from d_alpha stops where alpha was clamped (alpha >= max_alpha)
 //     and, in hard mode, where it was masked (alpha == 0);
+//   * depth test: alpha is the forward's, killed pixels included (alpha = 0
+//     there, so they add exact zeros to every sum and leave u as it was).
+//     The scene depth is read from the caller's (height, width) float32
+//     matrix, +inf beyond the image's edge, as in the forward.  The view-z
+//     row and the scene depth get no gradient: the test is a hard mask;
 //     dp2 = -2 * d_alpha * alpha;
 //   * the nine sums, in this row order: dp2*dx, dp2*dy, dp2*dx^2, dp2*dx*dy,
 //     dp2*dy^2, dc_r*w, dc_g*w, dc_b*w, dp2, with w = alpha * T_i and
@@ -82,10 +87,11 @@ __device__ __forceinline__ int pack_bf16_pair(float hi, float lo) {
     return (int)((h << 16) | l);
 }
 
-template <bool PACKED, bool SOFT>
+template <bool PACKED, bool SOFT, bool DEPTH>
 __global__ void __launch_bounds__(THREADS, 2)
 composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit words
                      long long n_cols,
+                     const float* __restrict__ bgd,   // (height, width) if DEPTH
                      const int* __restrict__ pair_splat,
                      const int* __restrict__ tile_base,
                      const int* __restrict__ tile_phi,
@@ -97,7 +103,7 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
                      long long g_pad,
                      int ntx, int height, int width, int chunk, int max_chunks,
                      float max_alpha) {
-    constexpr int ROWS = PACKED ? 8 : 10;
+    constexpr int ROWS = PayloadRows<PACKED, DEPTH>::value;
     constexpr int GROWS = PACKED ? 8 : NSUMS;
     extern __shared__ int smem[];
     int* s_idx = smem;                                              // [chunk]
@@ -122,14 +128,17 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
     // This thread's pixels: column `lane`, rows 4*warp + k.
     const int x = tx * TILE + lane;
     const float px = (float)x + 0.5f;
-    float py[PIX], dcr[PIX], dcg[PIX], dcb[PIX], u[PIX];
+    float py[PIX], dcr[PIX], dcg[PIX], dcb[PIX], u[PIX], zb[PIX];
 #pragma unroll
     for (int k = 0; k < PIX; ++k) {
         const int y = ty * TILE + 4 * warp + k;
         py[k] = (float)y + 0.5f;
         float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (x < width && y < height)
+        zb[k] = far_depth();
+        if (x < width && y < height) {
             d = *(reinterpret_cast<const float4*>(d_out) + ((long long)y * width + x));
+            if (DEPTH) zb[k] = bgd[(long long)y * width + x];
+        }
         dcr[k] = d.x;
         dcg[k] = d.y;
         dcb[k] = d.z;
@@ -142,7 +151,7 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
         const int c0 = ci * chunk;
         const int lo = max(c0, phi);
         const int hi = min(c0 + chunk, usedv);
-        load_chunk<PACKED>(fields, n_cols, pair_splat, base, c0, lo, hi, chunk, s_idx, s_pay);
+        load_chunk<ROWS>(fields, n_cols, pair_splat, base, c0, lo, hi, chunk, s_idx, s_pay);
         const int p_lo = lo - c0;
         const int p_hi = hi - c0;
         const int sb0 = p_lo / SUB;
@@ -163,13 +172,14 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
             for (int j = 0; j < SUB; ++j) {
                 const int p = s * SUB + j;
                 if (p < p_lo || p >= p_hi) continue;
-                const Pair q = read_pair<PACKED>(s_pay, chunk, p);
+                const Pair q = read_pair<PACKED, DEPTH>(s_pay, chunk, p);
                 const float dx = px - q.cx;
                 const float dxax = dx * q.ax;
                 const float dxbx = dx * q.bx;
 #pragma unroll
                 for (int k = 0; k < PIX; ++k) {
-                    const float alpha = pixel_alpha<SOFT>(q, dxax, dxbx, py[k] - q.cy, max_alpha);
+                    const float alpha =
+                        pixel_alpha<SOFT, DEPTH>(q, dxax, dxbx, py[k] - q.cy, max_alpha, zb[k]);
                     T[k] = T[k] * (1.0f - alpha);
                 }
             }
@@ -191,13 +201,14 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
                     Tm[j][k] = T[k];
                 }
                 if (valid) {
-                    const Pair q = read_pair<PACKED>(s_pay, chunk, p);
+                    const Pair q = read_pair<PACKED, DEPTH>(s_pay, chunk, p);
                     const float dx = px - q.cx;
                     const float dxax = dx * q.ax;
                     const float dxbx = dx * q.bx;
 #pragma unroll
                     for (int k = 0; k < PIX; ++k) {
-                        const float alpha = pixel_alpha<SOFT>(q, dxax, dxbx, py[k] - q.cy, max_alpha);
+                        const float alpha =
+                            pixel_alpha<SOFT, DEPTH>(q, dxax, dxbx, py[k] - q.cy, max_alpha, zb[k]);
                         a[j][k] = alpha;
                         T[k] = T[k] * (1.0f - alpha);
                     }
@@ -213,7 +224,7 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
                 const bool mine = (a[j][0] != 0.0f) || (a[j][1] != 0.0f) || (a[j][2] != 0.0f) ||
                                   (a[j][3] != 0.0f);
                 if (__any_sync(0xffffffffu, mine)) {
-                    const Pair q = read_pair<PACKED>(s_pay, chunk, p);
+                    const Pair q = read_pair<PACKED, DEPTH>(s_pay, chunk, p);
                     const float dx = px - q.cx;
 #pragma unroll
                     for (int k = 0; k < PIX; ++k) {
@@ -293,14 +304,17 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
 
 }  // namespace
 
-// fields, pair_splat, tile_base, tile_phi: as gsplat_composite_fwd.
+// fields, pair_splat, tile_base, tile_phi: as gsplat_composite_fwd; with
+// depth != 0 fields holds 11 float32 rows (row 10 the view-z) and bgd the
+// (height, width) float32 scene depth (else null; never packed).
 // used: (nty*ntx,) int32 and tchk: (nty*ntx, max_chunks, 1024) float32, as the
 // checkpointed forward wrote them.  grad_base: (nty*ntx,) int32.
 // d_out: (height, width, 4) float32, 16-byte aligned.
 // gout: (9, g_pad) float32, or with packed != 0 (8, g_pad) int32; zero-filled
 // by the caller.
 extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int packed, int soft,
-                                    const void* pair_splat, const void* tile_base,
+                                    int depth, const void* bgd, const void* pair_splat,
+                                    const void* tile_base,
                                     const void* tile_phi, const void* tile_span,
                                     const void* used, const void* grad_base, const void* d_out,
                                     const void* tchk, void* gout, long long g_pad, int nty,
@@ -310,13 +324,15 @@ extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int pa
     const int num_tiles = nty * ntx;
     if (num_tiles <= 0) return 0;
     if (chunk <= 0 || chunk % SUB != 0) return (int)cudaErrorInvalidValue;
+    if (depth && (packed || bgd == nullptr)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    const int rows = packed ? 8 : 10;
+    const int rows = packed ? 8 : (depth ? 11 : 10);
     const size_t words = (size_t)chunk * (1 + rows + NSUMS) + 2 * SUB * WARPS * NSUMS +
                          (size_t)(chunk / SUB) * gsplat::PIX * gsplat::THREADS;
     const size_t shmem = words * sizeof(int);
     if (shmem > 227 * 1024) return (int)cudaErrorInvalidValue;
     const int* f = static_cast<const int*>(fields);
+    const float* bd = static_cast<const float*>(bgd);
     const int* ps = static_cast<const int*>(pair_splat);
     const int* tb = static_cast<const int*>(tile_base);
     const int* tp = static_cast<const int*>(tile_phi);
@@ -325,20 +341,22 @@ extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int pa
     const float* dout = static_cast<const float*>(d_out);
     const float* tc = static_cast<const float*>(tchk);
     int* go = static_cast<int*>(gout);
-#define GSPLAT_LAUNCH(P, S)                                                                    \
+#define GSPLAT_LAUNCH(P, S, D)                                                                 \
     do {                                                                                       \
-        cudaError_t e = cudaFuncSetAttribute(composite_bwd_kernel<P, S>,                       \
+        cudaError_t e = cudaFuncSetAttribute(composite_bwd_kernel<P, S, D>,                    \
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,      \
                                              (int)shmem);                                      \
         if (e != cudaSuccess) return (int)e;                                                   \
-        composite_bwd_kernel<P, S><<<num_tiles, gsplat::THREADS, shmem, s>>>(                  \
-            f, n_cols, ps, tb, tp, us, gb, dout, tc, go, g_pad, ntx, height, width, chunk,     \
+        composite_bwd_kernel<P, S, D><<<num_tiles, gsplat::THREADS, shmem, s>>>(               \
+            f, n_cols, bd, ps, tb, tp, us, gb, dout, tc, go, g_pad, ntx, height, width, chunk, \
             max_chunks, max_alpha);                                                            \
     } while (0)
-    if (packed) {
-        if (soft) GSPLAT_LAUNCH(true, true); else GSPLAT_LAUNCH(true, false);
+    if (depth) {
+        if (soft) GSPLAT_LAUNCH(false, true, true); else GSPLAT_LAUNCH(false, false, true);
+    } else if (packed) {
+        if (soft) GSPLAT_LAUNCH(true, true, false); else GSPLAT_LAUNCH(true, false, false);
     } else {
-        if (soft) GSPLAT_LAUNCH(false, true); else GSPLAT_LAUNCH(false, false);
+        if (soft) GSPLAT_LAUNCH(false, true, false); else GSPLAT_LAUNCH(false, false, false);
     }
 #undef GSPLAT_LAUNCH
     return (int)cudaGetLastError();

@@ -1,9 +1,11 @@
 // What the compositing forward and backward kernels share: the tile and block
 // shape, the payload read of one chunk into shared memory, and one pixel's
-// alpha.  The backward has to land on the forward's side of the two hard
-// thresholds (alpha >= 1/255, q^2 <= 4) at every pixel, so both kernels take
-// alpha from the one function below, and both files are compiled with
-// -fmad=false: the same separately rounded operations in the same order.
+// alpha.  The backward has to land on the forward's side of every hard
+// threshold (alpha >= 1/255, q^2 <= 4, the depth test) at every pixel, so both
+// kernels take alpha from the functions below, and both files are compiled
+// with -fmad=false: the same separately rounded operations in the same order.
+// sqrtf stays correctly rounded (nvcc's default -prec-sqrt=true; never
+// -use_fast_math): the wireframe band edge is a hard threshold too.
 
 #pragma once
 
@@ -17,19 +19,30 @@ constexpr int TILE_PIXELS = TILE * TILE;
 constexpr int THREADS = 256;
 constexpr int PIX = 4;  // pixels per thread
 
-// One pair's payload, read back from shared memory as a broadcast.
+// Scene depth of a pixel beyond the image's edge: +inf never kills, so such a
+// pixel's early-stop vote is the same as without the depth test.
+__device__ __forceinline__ float far_depth() { return __int_as_float(0x7f800000); }
+
+// Payload rows: packed (8 int32), float32 (10) and float32 with the view-z
+// row of the depth test (11).
+template <bool PACKED, bool DEPTH>
+struct PayloadRows {
+    static constexpr int value = PACKED ? 8 : (DEPTH ? 11 : 10);
+};
+
+// One pair's payload, read back from shared memory as a broadcast.  z is the
+// splat centre's view depth (depth-test mode only).
 struct Pair {
-    float cx, cy, ax, ay, bx, by, cr, cg, cb, op;
+    float cx, cy, ax, ay, bx, by, cr, cg, cb, op, z;
 };
 
 // Reads positions [lo, hi) of a tile's segment (counted from `base`) into
 // shared memory at slots [lo - c0, hi - c0): first the payload column of each
 // pair, then the ROWS words of that column.  Ends with a barrier.
-template <bool PACKED>
+template <int ROWS>
 __device__ __forceinline__ void load_chunk(const int* __restrict__ fields, long long n_cols,
                                            const int* __restrict__ pair_splat, int base, int c0,
                                            int lo, int hi, int chunk, int* s_idx, int* s_pay) {
-    constexpr int ROWS = PACKED ? 8 : 10;
     const int tid = threadIdx.x;
     const int cnt = hi - lo;
     const int p0 = lo - c0;
@@ -43,7 +56,7 @@ __device__ __forceinline__ void load_chunk(const int* __restrict__ fields, long 
     __syncthreads();
 }
 
-template <bool PACKED>
+template <bool PACKED, bool DEPTH>
 __device__ __forceinline__ Pair read_pair(const int* s_pay, int chunk, int p) {
     Pair q;
     q.cx = __int_as_float(s_pay[0 * chunk + p]);
@@ -65,14 +78,18 @@ __device__ __forceinline__ Pair read_pair(const int* s_pay, int chunk, int p) {
         q.cb = __int_as_float(s_pay[8 * chunk + p]);
         q.op = __int_as_float(s_pay[9 * chunk + p]);
     }
+    q.z = DEPTH ? __int_as_float(s_pay[10 * chunk + p]) : 0.0f;
     return q;
 }
 
 // alpha of pair q at the pixel (dx, dy) away from its centre.  dxax = dx * ax
-// and dxbx = dx * bx are shared by a thread's pixels (one column).
-template <bool SOFT>
+// and dxbx = dx * bx are shared by a thread's pixels (one column).  With the
+// depth test, applied after the hard cutoff as the JAX kernel applies it, a
+// pixel whose scene depth bgd lies in front of the splat's view-z is killed;
+// a NaN on either side kills it too (jnp.where of a false compare).
+template <bool SOFT, bool DEPTH>
 __device__ __forceinline__ float pixel_alpha(const Pair& q, float dxax, float dxbx, float dy,
-                                             float max_alpha) {
+                                             float max_alpha, float bgd) {
     const float qx = dxax + dy * q.ay;
     const float qy = dxbx + dy * q.by;
     const float qx2 = qx * qx;
@@ -86,7 +103,23 @@ __device__ __forceinline__ float pixel_alpha(const Pair& q, float dxax, float dx
         const bool keep = (qx2 <= 4.0f) && (qy2 <= 4.0f) && (alpha >= alpha_cutoff);
         alpha = keep ? alpha : 0.0f;
     }
+    if (DEPTH) alpha = (q.z <= bgd) ? alpha : 0.0f;
     return alpha;
+}
+
+// Wireframe mode: an opaque band on the quad's +-2 edge replaces the Gaussian
+// falloff (no max_alpha clamp, no depth test).  wq1 = line_px * |A| and
+// wq2 = line_px * |B| are the band's half-widths in quad units, per pair.
+__device__ __forceinline__ float wire_alpha(const Pair& q, float dxax, float dxbx, float dy,
+                                            float wq1, float wq2) {
+    const float qx = dxax + dy * q.ay;
+    const float qy = dxbx + dy * q.by;
+    const float aqx = fabsf(qx);
+    const float aqy = fabsf(qy);
+    // NaN-propagating max, as jnp.maximum / torch.maximum
+    const float m = (aqx > aqy || aqx != aqx) ? aqx : aqy;
+    const float wq = (aqx > aqy) ? wq1 : wq2;
+    return (fabsf(m - 2.0f) <= wq && q.op > 0.0f) ? 1.0f : 0.0f;
 }
 
 }  // namespace gsplat

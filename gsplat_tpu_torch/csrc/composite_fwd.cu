@@ -4,8 +4,9 @@
 // Replaces the forward half of the TPU kernel
 // gsplat_tpu/ops/pallas/composite.py:_fwd_kernel (with _splat_alpha and
 // _pixel_coords), with and without transmittance checkpoints (a template
-// flag), for strides 1 and no depth test or wireframe.  What it computes is
-// the same:
+// flag), in three modes (a template parameter): the Gaussian beauty pass, the
+// same with the depth test against a host scene's depth, and the wireframe
+// band test; strides 1 only.  What it computes is the same:
 //
 //   * pixel centres (tx*32 + col + 0.5, ty*32 + row + 0.5);
 //   * pair positions pos in [phi, span) counted from tile_base are the
@@ -13,6 +14,14 @@
 //     neighbouring tiles and are never read;
 //   * alpha = min(exp(-(qx^2 + qy^2)) * op, max_alpha); in hard mode also
 //     qx^2 <= 4, qy^2 <= 4 and alpha >= 1/255, else 0;
+//   * depth test: then alpha = 0 where the splat's view-z (payload row 10)
+//     is not <= the scene depth at the pixel.  The kernel reads the caller's
+//     (height, width) float32 depth directly; pixels beyond the image's edge
+//     count as +inf, so they never kill and vote in the early stop as they
+//     would without the test;
+//   * wireframe: alpha = 1 where |max(|qx|, |qy|) - 2| <= wq and op > 0, else
+//     0, with wq = line_px * |A| or line_px * |B| by the larger of |qx|, |qy|
+//     (composite_common.cuh:wire_alpha); no clamp, no depth test;
 //   * acc += (alpha * T) * c;  T *= (1 - alpha), one multiply per pair in
 //     pair order; the alpha channel is 1 - T;
 //   * the early stop sits on the chunk grid counted from tile_base (NOT from
@@ -33,10 +42,11 @@
 // cannot gather per pair; here each block reads pair_splat[j] and then
 // column pair_splat[j] of the per-splat matrix itself, so the gather is part
 // of this function and the pair payload never exists in device memory.  The
-// (8, 128) register packing of a tile, the zero rows that pad the payload to
-// 16, and int32 transport against denormal flushing have no counterpart: a
-// packed word is bit-cast with __int_as_float, and the image is written as
-// (H, W, 4) float with the ragged right and bottom tiles masked.
+// (8, 128) register packing of a tile (and of the scene depth,
+// pack_depth_packed), the zero rows that pad the payload to 16, and int32
+// transport against denormal flushing have no counterpart: a packed word is
+// bit-cast with __int_as_float, and the image is written as (H, W, 4) float
+// with the ragged right and bottom tiles masked.
 //
 // Layout of a block: 256 threads; thread t owns column t % 32 and rows
 // t / 32 + {0, 8, 16, 24}, so a warp writes 32 neighbouring float4 pixels.
@@ -54,9 +64,9 @@
 // overlapping each other's loads this stays behind the arithmetic.
 //
 // Floating point.  The result is held against a sequence of separately
-// rounded PyTorch ops across two hard thresholds (alpha >= 1/255, q^2 <= 4),
-// where a one-ulp difference flips a pixel's contribution by up to about
-// 4e-3.  So this file is compiled with -fmad=false (no a*b+c contraction),
+// rounded PyTorch ops across hard thresholds (alpha >= 1/255, q^2 <= 4, the
+// wireframe band's edge), where a one-ulp difference flips a pixel's
+// contribution by up to about 4e-3 (a whole line pixel in wireframe mode).  So this file is compiled with -fmad=false (no a*b+c contraction),
 // uses expf and not __expf, and never fast math.  That costs roughly the
 // share of multiply-add pairs that could have been fused (about a third of
 // the float instructions here); lifting it means accepting threshold flips
@@ -71,10 +81,15 @@ namespace {
 
 using namespace gsplat;  // PIX = 4 pixels per thread: rows r0, r0+8, r0+16, r0+24
 
-template <bool PACKED, bool SOFT, bool CHK>
+constexpr int MODE_BEAUTY = 0;
+constexpr int MODE_DEPTH = 1;
+constexpr int MODE_WIRE = 2;
+
+template <bool PACKED, bool SOFT, bool CHK, int MODE>
 __global__ void __launch_bounds__(THREADS)
 composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit words
                      long long n_cols,
+                     const float* __restrict__ bgd,   // (height, width) if MODE_DEPTH
                      const int* __restrict__ pair_splat,
                      const int* __restrict__ tile_base,
                      const int* __restrict__ tile_phi,
@@ -83,10 +98,12 @@ composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
                      int* __restrict__ used,     // (num_tiles,)
                      float* __restrict__ tchk,   // (num_tiles, max_chunks, 1024) if CHK
                      int ntx, int height, int width, int chunk, int max_chunks,
-                     float max_alpha, float t_eps) {
+                     float max_alpha, float t_eps, float line_px) {
+    constexpr bool DEPTH = MODE == MODE_DEPTH;
+    constexpr int ROWS = PayloadRows<PACKED, DEPTH>::value;
     extern __shared__ int smem[];
     int* s_idx = smem;          // [chunk]
-    int* s_pay = smem + chunk;  // [8 or 10 rows][chunk]
+    int* s_pay = smem + chunk;  // [ROWS][chunk]
 
     const int t = blockIdx.x;
     const int ty = t / ntx;
@@ -99,14 +116,17 @@ composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
     const int row0 = tid >> 5;
 
     const float px = (float)(tx * TILE + col) + 0.5f;
-    float py[PIX], T[PIX], acc_r[PIX], acc_g[PIX], acc_b[PIX];
+    float py[PIX], T[PIX], acc_r[PIX], acc_g[PIX], acc_b[PIX], zb[PIX];
 #pragma unroll
     for (int k = 0; k < PIX; ++k) {
-        py[k] = (float)(ty * TILE + row0 + 8 * k) + 0.5f;
+        const int y = ty * TILE + row0 + 8 * k;
+        const int x = tx * TILE + col;
+        py[k] = (float)y + 0.5f;
         T[k] = 1.0f;
         acc_r[k] = 0.0f;
         acc_g[k] = 0.0f;
         acc_b[k] = 0.0f;
+        zb[k] = (DEPTH && x < width && y < height) ? bgd[(long long)y * width + x] : far_depth();
     }
 
     const int nchunks = (span + chunk - 1) / chunk;
@@ -122,17 +142,24 @@ composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
             for (int k = 0; k < PIX; ++k)
                 tchk[((long long)t * max_chunks + ci) * TILE_PIXELS + k * THREADS + tid] = T[k];
         }
-        load_chunk<PACKED>(fields, n_cols, pair_splat, base, c0, lo, hi, chunk, s_idx, s_pay);
+        load_chunk<ROWS>(fields, n_cols, pair_splat, base, c0, lo, hi, chunk, s_idx, s_pay);
 
         for (int p = lo - c0; p < hi - c0; ++p) {
-            const Pair q = read_pair<PACKED>(s_pay, chunk, p);
+            const Pair q = read_pair<PACKED, DEPTH>(s_pay, chunk, p);
             const float dx = px - q.cx;
             const float dxax = dx * q.ax;
             const float dxbx = dx * q.bx;
+            float wq1 = 0.0f, wq2 = 0.0f;
+            if (MODE == MODE_WIRE) {
+                wq1 = line_px * sqrtf(q.ax * q.ax + q.ay * q.ay);
+                wq2 = line_px * sqrtf(q.bx * q.bx + q.by * q.by);
+            }
 #pragma unroll
             for (int k = 0; k < PIX; ++k) {
                 const float dy = py[k] - q.cy;
-                const float alpha = pixel_alpha<SOFT>(q, dxax, dxbx, dy, max_alpha);
+                const float alpha = (MODE == MODE_WIRE)
+                                        ? wire_alpha(q, dxax, dxbx, dy, wq1, wq2)
+                                        : pixel_alpha<SOFT, DEPTH>(q, dxax, dxbx, dy, max_alpha, zb[k]);
                 const float w = alpha * T[k];
                 acc_r[k] = acc_r[k] + w * q.cr;
                 acc_g[k] = acc_g[k] + w * q.cg;
@@ -165,10 +192,16 @@ composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
 
 // fields: (10, n_cols) float32 rows [cx cy ax ay bx by r g b op], or with
 // packed != 0 (8, n_cols) int32 rows [cx cy ax ay bx by (r,g) (b,op)], the
-// first six bit-cast float32 and the last two holding two bf16 halves.
+// first six bit-cast float32 and the last two holding two bf16 halves; with
+// mode 1 (depth test) (11, n_cols) float32, row 10 the view-z.
+// mode: 0 Gaussian, 1 Gaussian with the depth test against bgd ((height,
+// width) float32, else null), 2 wireframe band of half-width line_px.
 // image: (height, width, 4) float32, 16-byte aligned; used: (nty*ntx,) int32.
 // tchk: (nty*ntx, max_chunks, 1024) float32 to take the checkpoints, or null.
+// Combinations built: every mode with packed = 0; modes 0 and 2 packed;
+// soft and checkpoints in modes 0 and 1.  Others return cudaErrorInvalidValue.
 extern "C" int gsplat_composite_fwd(const void* fields, long long n_cols, int packed, int soft,
+                                    int mode, const void* bgd, float line_px,
                                     const void* pair_splat, const void* tile_base,
                                     const void* tile_phi, const void* tile_span, void* image,
                                     void* used, void* tchk, int nty, int ntx, int height,
@@ -176,11 +209,15 @@ extern "C" int gsplat_composite_fwd(const void* fields, long long n_cols, int pa
                                     float t_eps, void* stream) {
     const int num_tiles = nty * ntx;
     if (num_tiles <= 0) return 0;
+    if (mode < MODE_BEAUTY || mode > MODE_WIRE) return (int)cudaErrorInvalidValue;
+    if (mode == MODE_DEPTH && (packed || bgd == nullptr)) return (int)cudaErrorInvalidValue;
+    if (mode == MODE_WIRE && (soft || tchk != nullptr)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    const int rows = packed ? 8 : 10;
+    const int rows = packed ? 8 : (mode == MODE_DEPTH ? 11 : 10);
     const size_t shmem = (size_t)(rows + 1) * chunk * sizeof(int);
     if (shmem > 48 * 1024) return (int)cudaErrorInvalidValue;
     const int* f = static_cast<const int*>(fields);
+    const float* bd = static_cast<const float*>(bgd);
     const int* ps = static_cast<const int*>(pair_splat);
     const int* tb = static_cast<const int*>(tile_base);
     const int* tp = static_cast<const int*>(tile_phi);
@@ -188,18 +225,23 @@ extern "C" int gsplat_composite_fwd(const void* fields, long long n_cols, int pa
     float* im = static_cast<float*>(image);
     int* u = static_cast<int*>(used);
     float* tc = static_cast<float*>(tchk);
-#define GSPLAT_LAUNCH(P, S, C)                                                           \
-    composite_fwd_kernel<P, S, C><<<num_tiles, gsplat::THREADS, shmem, s>>>(             \
-        f, n_cols, ps, tb, tp, ts, im, u, tc, ntx, height, width, chunk, max_chunks,     \
-        max_alpha, t_eps)
-#define GSPLAT_LAUNCH_C(P, S)                                                            \
+#define GSPLAT_LAUNCH(P, S, C, M)                                                        \
+    composite_fwd_kernel<P, S, C, M><<<num_tiles, gsplat::THREADS, shmem, s>>>(          \
+        f, n_cols, bd, ps, tb, tp, ts, im, u, tc, ntx, height, width, chunk, max_chunks, \
+        max_alpha, t_eps, line_px)
+#define GSPLAT_LAUNCH_C(P, S, M)                                                         \
     do {                                                                                 \
-        if (tc) GSPLAT_LAUNCH(P, S, true); else GSPLAT_LAUNCH(P, S, false);              \
+        if (tc) GSPLAT_LAUNCH(P, S, true, M); else GSPLAT_LAUNCH(P, S, false, M);        \
     } while (0)
-    if (packed) {
-        if (soft) GSPLAT_LAUNCH_C(true, true); else GSPLAT_LAUNCH_C(true, false);
+    if (mode == MODE_WIRE) {
+        if (packed) GSPLAT_LAUNCH(true, false, false, MODE_WIRE);
+        else GSPLAT_LAUNCH(false, false, false, MODE_WIRE);
+    } else if (mode == MODE_DEPTH) {
+        if (soft) GSPLAT_LAUNCH_C(false, true, MODE_DEPTH); else GSPLAT_LAUNCH_C(false, false, MODE_DEPTH);
+    } else if (packed) {
+        if (soft) GSPLAT_LAUNCH_C(true, true, MODE_BEAUTY); else GSPLAT_LAUNCH_C(true, false, MODE_BEAUTY);
     } else {
-        if (soft) GSPLAT_LAUNCH_C(false, true); else GSPLAT_LAUNCH_C(false, false);
+        if (soft) GSPLAT_LAUNCH_C(false, true, MODE_BEAUTY); else GSPLAT_LAUNCH_C(false, false, MODE_BEAUTY);
     }
 #undef GSPLAT_LAUNCH_C
 #undef GSPLAT_LAUNCH

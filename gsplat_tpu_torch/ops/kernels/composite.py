@@ -29,9 +29,14 @@ reductions per pair) against 32–40 bytes of payload.  Both sources are
 compiled without FMA contraction so that they agree with the plain versions —
 and with each other — across the two hard thresholds (see the source notes).
 
+Modes, as in the TPU kernel: ``config.depth_test`` (an 11th payload row, the
+splat's view-z, tested per pixel against the caller's (H, W) scene depth
+``bg_depth``; forward and backward) and ``config.wireframe`` (an opaque band
+on the quad's edge in place of the Gaussian; forward only).  The strided
+tile mapping of the sharded renderer still raises ``NotImplementedError``.
+
 Also here, as torch ops: ``pack2`` / ``unpack2`` and ``pack_payload`` (the
-8-row int32 payload of ``payload_dtype="packed"``).  Wireframe, depth test
-and strided tiles belong to later slices.
+8-row int32 payload of ``payload_dtype="packed"``).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from . import _build
 
 TILE = 32          # the kernel's pixel tile is TILE×TILE
 P_ROWS = 10        # payload rows: cx cy ax ay bx by r g b op
+P_ROWS_DEPTH = 11  # the same and the view-z row of the depth test
 P_ROWS_PACKED = 8  # packed payload rows: [cx cy ax ay bx by (r,g) (b,op)]
 N_SUMS = 9         # gradient-space rows, the raw moment sums of one pair over
                    # its tile's pixels: Σdp2·dx, Σdp2·dy, Σdp2·dx², Σdp2·dxdy,
@@ -54,11 +60,19 @@ N_SUMS = 9         # gradient-space rows, the raw moment sums of one pair over
 G_ROWS_PACKED = 8  # packed gradient-space rows (int32): the first six sums
                    # bit-cast, (Σdc_g·w, Σdc_b·w) as two bf16 halves, Σdp2
 
-# Wrapper calls that launched the forward kernel (either variant), those of
-# them that wrote checkpoints, and calls that launched the backward kernel.
+# Wrapper calls that launched the forward kernel (any variant), those of them
+# that wrote checkpoints, that ran the depth test and that ran the wireframe
+# band test; calls that launched the backward kernel, and those of them with
+# the depth test.
 launches = 0
 launches_checkpoint = 0
+launches_depth = 0
+launches_wire = 0
 launches_bwd = 0
+launches_bwd_depth = 0
+
+# The forward kernel's modes (csrc/composite_fwd.cu).
+MODE_BEAUTY, MODE_DEPTH, MODE_WIRE = 0, 1, 2
 
 _lib_fwd = None
 _lib_bwd = None
@@ -71,6 +85,7 @@ def _library():
         p = ctypes.c_void_p
         lib.gsplat_composite_fwd.argtypes = [
             p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, p, ctypes.c_float,
             p, p, p, p, p, p, p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_float, p,
@@ -87,6 +102,7 @@ def _library_bwd():
         p = ctypes.c_void_p
         lib.gsplat_composite_bwd.argtypes = [
             p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, p,
             p, p, p, p, p, p, p, p, p, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, p,
@@ -133,17 +149,36 @@ def max_chunks(config: RenderConfig) -> int:
     return config.tile_capacity // config.chunk + 1
 
 
-def _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config):
+def kernel_mode(config: RenderConfig) -> int:
+    """The forward kernel's mode for ``config``: the wireframe band test wins
+    over the depth test, as in the TPU kernel (whose band test skips it)."""
+    if config.wireframe:
+        return MODE_WIRE
+    return MODE_DEPTH if config.depth_test else MODE_BEAUTY
+
+
+def _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
+           bg_depth=None):
     if config.tile_h != TILE or config.tile_w != TILE:
         raise ValueError("the compositing kernel requires tile_h == tile_w == 32")
-    if config.wireframe:
-        raise NotImplementedError("wireframe compositing is a later slice of the port")
-    if config.depth_test:
-        raise NotImplementedError("depth-tested compositing is a later slice of the port")
     if config.row_stride != 1 or config.col_stride != 1:
         raise NotImplementedError("strided tile mapping (sharded render) is a later slice of the port")
     packed = config.payload_dtype == "packed"
-    rows, dt = (P_ROWS_PACKED, torch.int32) if packed else (P_ROWS, torch.float32)
+    if config.depth_test:
+        if bg_depth is None:
+            raise ValueError("config.depth_test requires bg_depth, the (H, W) scene depth")
+        if bg_depth.dtype != torch.float32 or tuple(bg_depth.shape) != (height, width):
+            raise TypeError(
+                f"bg_depth: expected ({height}, {width}) float32, got {tuple(bg_depth.shape)} {bg_depth.dtype}"
+            )
+        if bg_depth.device != fields.device:
+            raise ValueError("all compositor inputs must live on one device")
+    elif bg_depth is not None:
+        raise ValueError("bg_depth given without config.depth_test")
+    if packed:
+        rows, dt = P_ROWS_PACKED, torch.int32
+    else:
+        rows, dt = (P_ROWS_DEPTH if config.depth_test else P_ROWS), torch.float32
     if fields.dim() != 2 or fields.shape[0] != rows or fields.dtype != dt:
         raise TypeError(
             f"payload_dtype={config.payload_dtype!r} takes a ({rows}, N) {dt} matrix, "
@@ -163,6 +198,11 @@ def _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height,
     return packed
 
 
+def _check_forward_only(config, backward):
+    if config.wireframe and backward:
+        raise ValueError("wireframe mode is forward-only (the band test has no useful gradient)")
+
+
 def _check_columns(fields, pair_splat):
     """CPU path only: padding entries are in range by construction (binning
     spreads them over real columns); checked where it costs no device
@@ -174,7 +214,7 @@ def _check_columns(fields, pair_splat):
 
 def _require_contiguous(**tensors):
     for name, a in tensors.items():
-        if not a.is_contiguous():
+        if a is not None and not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
@@ -183,7 +223,8 @@ class _PlainTiles:
     tile and one pair position's α over them, by the same separately rounded
     operations in the same order."""
 
-    def __init__(self, fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed):
+    def __init__(self, fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed,
+                 bg_depth=None):
         dev = fields.device
         f32 = torch.float32
         self.fields, self.pair_splat, self.packed, self.config = fields, pair_splat, packed, config
@@ -197,6 +238,9 @@ class _PlainTiles:
         self.px = origin_x[:, None, None] + iota[None, None, :]  # (T, 1, 32)
         self.py = origin_y[:, None, None] + iota[None, :, None]  # (T, 32, 1)
         self.max_alpha = torch.full((), config.max_alpha, dtype=f32, device=dev)
+        self.mode = kernel_mode(config)
+        # (T, 32, 32) scene depth, +inf beyond the image's edge
+        self.bgd = None if bg_depth is None else _depth_tiles(bg_depth, nty, ntx)
 
     def pair(self, pos, active):
         """Position ``pos`` of every tile's segment: ``(valid, alpha, dx, dy,
@@ -219,6 +263,16 @@ class _PlainTiles:
         dy = self.py - col(geo[1])
         qx = dx * col(geo[2]) + dy * col(geo[3])
         qy = dx * col(geo[4]) + dy * col(geo[5])
+        color = torch.stack([cr, cg, cb], dim=1)
+        if self.mode == MODE_WIRE:
+            line_px = config.line_px
+            wq1 = line_px * torch.sqrt(geo[2] * geo[2] + geo[3] * geo[3])
+            wq2 = line_px * torch.sqrt(geo[4] * geo[4] + geo[5] * geo[5])
+            aqx, aqy = torch.abs(qx), torch.abs(qy)
+            m = torch.maximum(aqx, aqy)
+            wq = torch.where(aqx > aqy, col(wq1), col(wq2))
+            on_edge = (torch.abs(m - QUAD_EXTENT) <= wq) & (col(op) > 0.0)
+            return valid, on_edge.to(torch.float32), dx, dy, color
         qx2 = qx * qx
         qy2 = qy * qy
         power = qx2 + qy2
@@ -226,7 +280,9 @@ class _PlainTiles:
         if not config.soft_cutoff:
             inside = torch.maximum(qx2, qy2) <= QUAD_EXTENT * QUAD_EXTENT
             alpha = torch.where(inside & (alpha >= ALPHA_CUTOFF), alpha, 0.0)
-        return valid, alpha, dx, dy, torch.stack([cr, cg, cb], dim=1)
+        if self.mode == MODE_DEPTH:
+            alpha = torch.where(col(f[10]) <= self.bgd, alpha, 0.0)
+        return valid, alpha, dx, dy, color
 
 
 def _col(v):
@@ -239,6 +295,14 @@ def _to_tiles(image, nty, ntx):
     full = image.new_zeros((nty * TILE, ntx * TILE, c))
     full[:h, :w] = image
     return full.reshape(nty, TILE, ntx, TILE, c).permute(0, 2, 4, 1, 3).reshape(nty * ntx, c, TILE, TILE)
+
+
+def _depth_tiles(bg_depth, nty, ntx):
+    """(H, W) scene depth → (T, 32, 32), +inf beyond the image's edge."""
+    h, w = bg_depth.shape
+    full = bg_depth.new_full((nty * TILE, ntx * TILE), float("inf"))
+    full[:h, :w] = bg_depth
+    return full.reshape(nty, TILE, ntx, TILE).permute(0, 2, 1, 3).reshape(nty * ntx, TILE, TILE)
 
 
 def _from_tiles(tiles, nty, ntx, height, width):
@@ -260,23 +324,28 @@ def composite_splats_plain(
     width: int,
     config: RenderConfig,
     checkpoint: bool = False,
+    bg_depth: torch.Tensor = None,
 ):
     """Plain PyTorch version of the compositing forward: a loop over chunk
     steps and, inside, over pair positions, vectorised over tiles and pixels,
-    with the same base-aligned stop rule.  Returns ``(image, used)``:
-    (H, W, 4) float32 premultiplied RGBA and the (T,) int32 stop counter; with
+    with the same base-aligned stop rule and the same modes.  Returns
+    ``(image, used)``: (H, W, 4) float32 premultiplied RGBA and the (T,) int32
+    stop counter; with
     ``checkpoint=True`` also the ``(T, max_chunks, 1024)`` transmittance at
     the top of every chunk a tile walked (zeros elsewhere), pixels row-major
     within the tile.
 
     The loop bounds are read to the host (one read for the chunk count, one
     per chunk for "any tile still walking")."""
-    packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config)
+    packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
+                    bg_depth)
+    _check_forward_only(config, checkpoint)
     dev = fields.device
     f32 = torch.float32
     num_tiles = nty * ntx
     chunk = config.chunk
-    tiles = _PlainTiles(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed)
+    tiles = _PlainTiles(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed,
+                        bg_depth)
 
     acc = torch.zeros((num_tiles, 3, TILE, TILE), dtype=f32, device=dev)
     trans = torch.ones((num_tiles, TILE, TILE), dtype=f32, device=dev)
@@ -322,6 +391,7 @@ def composite_splats(
     width: int,
     config: RenderConfig,
     checkpoint: bool = False,
+    bg_depth: torch.Tensor = None,
 ):
     """Composite every tile's pair segment front to back.
 
@@ -329,16 +399,22 @@ def composite_splats(
       fields: per-splat payload matrix in the order ``pair_splat`` indexes —
         ``(10, N)`` float32 rows ``cx cy ax ay bx by r g b op``, or for
         ``payload_dtype="packed"`` the ``(8, N)`` int32 matrix of
-        :func:`pack_payload`.
+        :func:`pack_payload`; with ``config.depth_test`` ``(11, N)`` float32,
+        row 10 the splats' view-z.
       pair_splat: ``(P_pad,)`` int32 — tile-sorted pair → payload column.
       tile_base / tile_phi / tile_span: ``(T,)`` int32 segment descriptors
         (``ops/binning.py``): positions ``[phi, span)`` counted from ``base``
         are the tile's own pairs.
       nty, ntx, height, width: tile grid and image size.
-      config: ``chunk``, ``max_alpha``, ``transmittance_eps``, ``soft_cutoff``,
-        ``payload_dtype``.
+      config: ``chunk``, ``max_alpha``, ``transmittance_eps``, ``soft_cutoff``
+        (not read by the wireframe band test), ``payload_dtype``,
+        ``depth_test``, ``wireframe`` and ``line_px``.
       checkpoint: also return the transmittance checkpoints the backward
-        replays from.
+        replays from (not in wireframe mode, which is forward-only).
+      bg_depth: with ``config.depth_test``, the (H, W) float32 view-space
+        scene depth; a splat's contribution to a pixel is killed unless its
+        view-z is ``<=`` the pixel's depth.  Ignored by the wireframe band
+        test.
 
     Returns:
       ``(image, used)``: (H, W, 4) float32 premultiplied RGBA (alpha = 1 − T)
@@ -351,17 +427,21 @@ def composite_splats(
     On CUDA tensors this launches the kernel (or raises); on CPU tensors it
     takes :func:`composite_splats_plain`.
     """
-    global launches, launches_checkpoint
-    packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config)
+    global launches, launches_checkpoint, launches_depth, launches_wire
+    packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
+                    bg_depth)
+    _check_forward_only(config, checkpoint)
     if not fields.is_cuda:
         _check_columns(fields, pair_splat)
         return composite_splats_plain(
             fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
-            checkpoint=checkpoint,
+            checkpoint=checkpoint, bg_depth=bg_depth,
         )
+    mode = kernel_mode(config)
+    depth = bg_depth if mode == MODE_DEPTH else None
     _require_contiguous(fields=fields, pair_splat=pair_splat, tile_base=tile_base,
-                        tile_phi=tile_phi, tile_span=tile_span)
-    if (P_ROWS + 1) * config.chunk * 4 > 48 * 1024:
+                        tile_phi=tile_phi, tile_span=tile_span, bg_depth=depth)
+    if (P_ROWS_DEPTH + 1) * config.chunk * 4 > 48 * 1024:
         raise ValueError(f"chunk={config.chunk} exceeds the kernel's shared memory")
     dev = fields.device
     num_tiles = nty * ntx
@@ -371,10 +451,14 @@ def composite_splats(
     tchk = None
     if checkpoint:
         tchk = torch.empty((num_tiles, n_chk, TILE * TILE), dtype=torch.float32, device=dev)
+    # the band test takes no cutoff, hard or soft (JAX's _splat_alpha returns
+    # before it reads soft_cutoff), and the kernel has no soft band variant
+    soft = config.soft_cutoff and mode != MODE_WIRE
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.gsplat_composite_fwd(
-            fields.data_ptr(), fields.shape[1], int(packed), int(config.soft_cutoff),
+            fields.data_ptr(), fields.shape[1], int(packed), int(soft),
+            mode, None if depth is None else depth.data_ptr(), config.line_px,
             pair_splat.data_ptr(), tile_base.data_ptr(), tile_phi.data_ptr(),
             tile_span.data_ptr(), image.data_ptr(), used.data_ptr(),
             tchk.data_ptr() if checkpoint else None,
@@ -385,6 +469,8 @@ def composite_splats(
     if err != 0:
         raise RuntimeError(f"gsplat_composite_fwd launch failed: CUDA error {err}")
     launches += 1
+    launches_depth += int(mode == MODE_DEPTH)
+    launches_wire += int(mode == MODE_WIRE)
     if checkpoint:
         launches_checkpoint += 1
         return image, used, tchk
@@ -423,19 +509,23 @@ def composite_bwd_plain(
     height: int,
     width: int,
     config: RenderConfig,
+    bg_depth: torch.Tensor = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the compositing backward, vectorised over
     tiles and pixels: chunks in reverse, each replayed forward from its
     checkpoint (α and T of every position kept for the walk back), then walked
     back with the suffix accumulator ``u``.  Returns the gradient space (see
     :func:`composite_bwd`)."""
-    packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config)
+    packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
+                    bg_depth)
+    _check_forward_only(config, True)
     num_tiles = nty * ntx
     _check_bwd(used, grad_base, d_out, tchk, g_pad, num_tiles, height, width, config, fields.device)
     dev = fields.device
     f32 = torch.float32
     chunk = config.chunk
-    tiles = _PlainTiles(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed)
+    tiles = _PlainTiles(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed,
+                        bg_depth)
 
     gspace = torch.zeros((N_SUMS, g_pad), dtype=f32, device=dev)
     d_tiles = _to_tiles(d_out, nty, ntx)  # off-image pixels: exact zeros
@@ -514,12 +604,15 @@ def composite_bwd(
     height: int,
     width: int,
     config: RenderConfig,
+    bg_depth: torch.Tensor = None,
 ) -> torch.Tensor:
     """Backward of :func:`composite_splats` up to the per-pair moment sums.
 
     Args beyond the forward's: ``used`` and ``tchk`` as the checkpointed
     forward returned them, ``grad_base`` (``ops/binning.py``), the cotangent
     ``d_out`` (H, W, 4) float32 and ``g_pad`` (``binning.grad_pad_size``).
+    With ``config.depth_test`` the same ``bg_depth`` as the forward's: killed
+    pixels have α = 0 and add exact zeros.  Wireframe mode has no backward.
 
     Returns the gradient address space: ``(9, g_pad)`` float32 whose column
     ``grad_base[t] + pos`` holds, for position ``pos`` of tile ``t``'s
@@ -533,18 +626,22 @@ def composite_bwd(
     On CUDA tensors this launches the kernel (or raises); on CPU tensors it
     takes :func:`composite_bwd_plain`.
     """
-    global launches_bwd
-    packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config)
+    global launches_bwd, launches_bwd_depth
+    packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
+                    bg_depth)
+    _check_forward_only(config, True)
     num_tiles = nty * ntx
     _check_bwd(used, grad_base, d_out, tchk, g_pad, num_tiles, height, width, config, fields.device)
     if not fields.is_cuda:
         _check_columns(fields, pair_splat)
         return composite_bwd_plain(
             fields, pair_splat, tile_base, tile_phi, tile_span, used, grad_base, d_out, tchk,
-            g_pad, nty, ntx, height, width, config,
+            g_pad, nty, ntx, height, width, config, bg_depth=bg_depth,
         )
+    depth = config.depth_test
     _require_contiguous(fields=fields, pair_splat=pair_splat, tile_base=tile_base, tile_phi=tile_phi,
-                        tile_span=tile_span, used=used, grad_base=grad_base, d_out=d_out, tchk=tchk)
+                        tile_span=tile_span, used=used, grad_base=grad_base, d_out=d_out, tchk=tchk,
+                        bg_depth=bg_depth)
     if config.chunk % 8 != 0:
         raise ValueError("the backward kernel walks a chunk in sub-blocks of 8 pairs")
     dev = fields.device
@@ -555,6 +652,7 @@ def composite_bwd(
     with torch.cuda.device(dev):
         err = lib.gsplat_composite_bwd(
             fields.data_ptr(), fields.shape[1], int(packed), int(config.soft_cutoff),
+            int(depth), bg_depth.data_ptr() if depth else None,
             pair_splat.data_ptr(), tile_base.data_ptr(), tile_phi.data_ptr(), tile_span.data_ptr(),
             used.data_ptr(), grad_base.data_ptr(), d_out.data_ptr(), tchk.data_ptr(),
             gspace.data_ptr(), g_pad,
@@ -564,34 +662,36 @@ def composite_bwd(
     if err != 0:
         raise RuntimeError(f"gsplat_composite_bwd launch failed: CUDA error {err}")
     launches_bwd += 1
+    launches_bwd_depth += int(depth)
     return gspace
 
 
 class CompositeSplats(torch.autograd.Function):
     """Differentiable payload read + compositing (the counterpart of the JAX
     package's custom VJP ``composite_splats_pallas``).  Gradients flow to
-    ``fields`` only.  On CPU tensors the same graph runs through the plain
-    versions of the three kernels."""
+    ``fields`` only: with ``config.depth_test`` its view-z row (row 10) gets
+    a zero gradient and ``bg_depth`` a zero cotangent, the test being a hard
+    mask.  On CPU tensors the same graph runs through the plain versions of
+    the three kernels."""
 
     @staticmethod
     def forward(ctx, fields, pair_splat, tile_base, tile_phi, tile_span, grad_base,
-                dest_of_exp, exp_offsets, exp_counts, order, nty, ntx, height, width, config):
-        if config.wireframe:
-            raise ValueError(
-                "wireframe mode is forward-only (the band test has no useful gradient)"
-            )
+                dest_of_exp, exp_offsets, exp_counts, order, nty, ntx, height, width, config,
+                bg_depth=None):
+        _check_forward_only(config, True)
         # Packing to int32 happens here, inside the function: an int32 tensor
         # carries no gradient.
         if config.payload_dtype == "packed":
             payload = pack_payload(fields)
         else:
-            payload = fields[:P_ROWS].contiguous()
+            payload = fields[:P_ROWS_DEPTH if config.depth_test else P_ROWS].contiguous()
+        bgd = bg_depth.detach() if bg_depth is not None else None
         image, used, tchk = composite_splats(
             payload, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
-            checkpoint=True,
+            checkpoint=True, bg_depth=bgd,
         )
         ctx.save_for_backward(fields, payload, pair_splat, tile_base, tile_phi, tile_span, used,
-                              grad_base, dest_of_exp, exp_offsets, exp_counts, tchk)
+                              grad_base, dest_of_exp, exp_offsets, exp_counts, tchk, bgd)
         ctx.order = order
         ctx.geometry = (nty, ntx, height, width, config)
         return image
@@ -602,13 +702,14 @@ class CompositeSplats(torch.autograd.Function):
         from .segsum import segsum_by_splat
 
         (fields, payload, pair_splat, tile_base, tile_phi, tile_span, used,
-         grad_base, dest_of_exp, exp_offsets, exp_counts, tchk) = ctx.saved_tensors
+         grad_base, dest_of_exp, exp_offsets, exp_counts, tchk, bgd) = ctx.saved_tensors
         nty, ntx, height, width, config = ctx.geometry
         packed = config.payload_dtype == "packed"
         g_pad = grad_pad_size(dest_of_exp.shape[0], nty * ntx, config.chunk)
         gspace = composite_bwd(
             payload, pair_splat, tile_base, tile_phi, tile_span, used, grad_base,
             g.to(torch.float32).contiguous(), tchk, g_pad, nty, ntx, height, width, config,
+            bg_depth=bgd,
         )
         # Per-splat raw-moment sums (9, N), in the order of ``fields``.
         m = segsum_by_splat(gspace, dest_of_exp, exp_offsets, exp_counts, order=ctx.order, packed=packed)
@@ -641,21 +742,26 @@ class CompositeSplats(torch.autograd.Function):
             dim=0,
         )
         if fields.shape[0] > P_ROWS:
+            # the view-z row of the depth test (and any row beyond the
+            # payload's): the test is a hard mask, no gradient flows to it
             d_fields = torch.cat(
                 [d_fields, d_fields.new_zeros((fields.shape[0] - P_ROWS, d_fields.shape[1]))], dim=0
             )
-        return (d_fields,) + (None,) * 14
+        d_bgd = torch.zeros_like(bgd) if ctx.needs_input_grad[15] else None
+        return (d_fields,) + (None,) * 14 + (d_bgd,)
 
 
-def composite_splats_diff(fields, binned, nty, ntx, height, width, config, order=None):
+def composite_splats_diff(fields, binned, nty, ntx, height, width, config, order=None, bg_depth=None):
     """Differentiable compositing of float ``(≥10, N)`` field rows over the
     pairs of ``binned`` (``bin_splats(..., with_grad_map=True)``).  Returns
     the (H, W, 4) image.  ``order``: the depth permutation when ``fields`` is
-    in storage order (``bin_splats(..., order=...)``)."""
+    in storage order (``bin_splats(..., order=...)``).  With
+    ``config.depth_test`` ``fields`` holds 11 rows (row 10 the view-z) and
+    ``bg_depth`` is the (H, W) scene depth."""
     if binned.dest_of_exp is None:
         raise ValueError("composite_splats_diff needs bin_splats(..., with_grad_map=True)")
     return CompositeSplats.apply(
         fields, binned.pair_splat, binned.tile_base, binned.tile_phi, binned.tile_span,
         binned.grad_base, binned.dest_of_exp, binned.exp_offsets, binned.exp_counts,
-        order, nty, ntx, height, width, config,
+        order, nty, ntx, height, width, config, bg_depth,
     )

@@ -22,7 +22,7 @@ from ..models.camera import Camera
 from ..models.splats import GaussianSplats
 from ..utils.config import RenderConfig
 from .covariance import ALPHA_CUTOFF, QUAD_EXTENT
-from .projection import ROW_DEPTH, ROW_VALID, ProjectedSplats, project_splats
+from .projection import ROW_DEPTH, ROW_VALID, ROW_VIEWZ, ProjectedSplats, project_splats
 
 # Benign per-field replacement values for invalid (behind-camera) splats:
 # far-offscreen center, unit quad basis, zero color/opacity, +inf depth.
@@ -112,9 +112,14 @@ def composite_reference(
     width: int,
     height: int,
     config: RenderConfig = RenderConfig(),
+    bg_depth: torch.Tensor = None,
 ) -> torch.Tensor:
     """Depth-sort + front-to-back composite.  Returns (H, W, 4) premultiplied
-    RGBA (alpha channel = 1 − final transmittance)."""
+    RGBA (alpha channel = 1 − final transmittance).
+
+    ``bg_depth``: optional (H, W) view-space scene depth — splat
+    contributions whose view-z lies behind it are killed per pixel (the
+    host scene's z-tested beauty pass)."""
     p = sanitize_projected(projected)
     order = torch.argsort(p.fields[ROW_DEPTH], stable=True)
     rows = p.fields[:, order].T  # (N, 16)
@@ -132,6 +137,8 @@ def composite_reference(
             row[0], row[1], row[2], row[3], row[4], row[5], row[9],
             px, py, config.max_alpha, config.soft_cutoff,
         )
+        if bg_depth is not None:
+            alpha = torch.where(row[ROW_VIEWZ] <= bg_depth, alpha, 0.0)
         weight = alpha * transmittance
         color_acc = color_acc + weight[..., None] * row[6:9]
         transmittance = transmittance * (1.0 - alpha)
@@ -142,8 +149,10 @@ def render_reference(
     splats: GaussianSplats,
     camera: Camera,
     config: RenderConfig = RenderConfig(),
+    bg_depth: torch.Tensor = None,
 ) -> torch.Tensor:
-    """End-to-end oracle render: project → sort → composite.  (H, W, 4)."""
+    """End-to-end oracle render: project → sort → composite.  (H, W, 4).
+    ``bg_depth``: optional (H, W) scene depth (see :func:`composite_reference`)."""
     projected = project_splats(splats, camera, config.sh_order, only_sh=config.only_sh)
     projected = quantize_payload(projected, config)
-    return composite_reference(projected, camera.width, camera.height, config)
+    return composite_reference(projected, camera.width, camera.height, config, bg_depth=bg_depth)

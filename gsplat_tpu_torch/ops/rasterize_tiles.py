@@ -23,7 +23,7 @@ from ..utils.config import RenderConfig
 from .binning import BinnedPairs, RenderStats, bin_splats, tile_grid, warn_if_dropped
 from .covariance import ALPHA_CUTOFF, QUAD_EXTENT
 from .permute import permute_cols
-from .projection import N_FIELDS, ROW_DEPTH, ProjectedSplats, project_splats
+from .projection import N_FIELDS, ROW_DEPTH, ROW_VIEWZ, ProjectedSplats, project_splats
 from .rasterize_ref import quantize_payload, sanitize_projected
 
 
@@ -93,8 +93,13 @@ def composite_tile_lists(
     config: RenderConfig,
     row_offset: int = 0,
     col_offset: int = 0,
+    bg_depth_tiles: torch.Tensor = None,
 ) -> torch.Tensor:
     """Front-to-back composite of dense tile lists.
+
+    ``bg_depth_tiles``: optional (T, TH, TW) view-space scene depth per
+    tile (:func:`pack_depth_tiles`) — splat contributions behind it are
+    killed per pixel before blending (the host scene's z-tested beauty pass).
 
     Args:
       tile_lists: (T, K) int32 depth-rank indices, ``n`` sentinel for empty.
@@ -143,6 +148,8 @@ def composite_tile_lists(
         if not config.soft_cutoff:
             inside = (torch.abs(qx) <= QUAD_EXTENT) & (torch.abs(qy) <= QUAD_EXTENT)
             alpha = torch.where(inside & (alpha >= ALPHA_CUTOFF), alpha, 0.0)
+        if bg_depth_tiles is not None:
+            alpha = torch.where(f[ROW_VIEWZ][:, None, None] <= bg_depth_tiles, alpha, 0.0)
         weight = alpha * transmittance  # (T, TH, TW)
         color = color + weight[:, None] * f[6:9, :].T[:, :, None, None]
         transmittance = transmittance * (1.0 - alpha)
@@ -156,15 +163,28 @@ def composite_tile_lists(
     return image[:height, :width].contiguous()
 
 
+def pack_depth_tiles(bg_depth: torch.Tensor, nty: int, ntx: int, th: int, tw: int) -> torch.Tensor:
+    """(H, W) scene depth → (T, TH, TW) per-tile blocks, padded with +inf
+    (pixels outside the image never kill anything)."""
+    h, w = bg_depth.shape
+    d = bg_depth.new_full((nty * th, ntx * tw), float("inf"))
+    d[:h, :w] = bg_depth
+    return d.reshape(nty, th, ntx, tw).permute(0, 2, 1, 3).reshape(-1, th, tw)
+
+
 def render_tiles(
     splats: GaussianSplats,
     camera: Camera,
     config: RenderConfig = RenderConfig(),
     order: torch.Tensor = None,
     with_stats: bool = False,
+    bg_depth: torch.Tensor = None,
 ) -> torch.Tensor:
     """End-to-end tiled render.  Returns (H, W, 4) premultiplied RGBA — or
     ``(image, RenderStats)`` with ``with_stats=True``.
+
+    ``bg_depth``: optional (H, W) view-space scene depth (depth-tested
+    compositing into a host scene; pair with ``config.depth_test``).
 
     ``order``: optional precomputed depth permutation (see
     :func:`depth_order`) — the amortized-sort path; recomputed when None.
@@ -174,11 +194,18 @@ def render_tiles(
         tight_footprint=not config.soft_cutoff, only_sh=config.only_sh,
     )
     p = quantize_payload(sanitize_projected(projected), config)
-    p = sort_by_depth(p) if order is None else permute_fields(p, order, 14)
+    # 15 rows keep the view-z row (14) for the depth test
+    n_rows = 15 if bg_depth is not None else 14
+    p = sort_by_depth(p, n_rows) if order is None else permute_fields(p, order, n_rows)
     binned = bin_splats(p, camera.width, camera.height, config)
     nty, ntx = tile_grid(camera.width, camera.height, config.tile_h, config.tile_w)
     lists = build_tile_lists(binned, nty * ntx, config.tile_capacity, p.count)
-    image = composite_tile_lists(lists, p.fields, camera.width, camera.height, config)
+    bgd_t = None
+    if bg_depth is not None:
+        bgd_t = pack_depth_tiles(bg_depth, nty, ntx, config.tile_h, config.tile_w)
+    image = composite_tile_lists(
+        lists, p.fields, camera.width, camera.height, config, bg_depth_tiles=bgd_t
+    )
     warn_if_dropped(binned, config)
     if with_stats:
         return image, RenderStats(dropped_pairs=binned.dropped_pairs)

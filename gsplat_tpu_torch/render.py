@@ -17,6 +17,10 @@ Backends:
   * ``"reference"``— O(N·H·W) per-pixel oracle (ground truth).
   * ``"auto"``     — ``"cuda"``.  Nothing probes for a card and quietly picks
     another backend.
+
+Compositing into a host scene (``background_depth``, ``background_rgba``) and
+the wireframe debug view (``ops/wireframe.py``) ride the same kernels in
+their depth-test and band-test modes.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from .ops.binning import (
     warn_if_dropped,
 )
 from .ops.kernels.composite import composite_splats, composite_splats_diff, pack_payload
-from .ops.projection import project_splats
+from .ops.projection import ROW_VIEWZ, project_splats
 from .ops.rasterize_ref import quantize_payload, render_reference, sanitize_projected
 from .ops.rasterize_tiles import permute_fields, render_tiles, sort_by_depth
 from .utils.config import RenderConfig
@@ -47,12 +51,14 @@ def render_cuda(
     config: RenderConfig = RenderConfig(),
     order: torch.Tensor = None,
     with_stats: bool = False,
+    bg_depth: torch.Tensor = None,
 ) -> torch.Tensor:
     """Kernel-path render (the counterpart of ``render_pallas``).  Returns
     (H, W, 4) premultiplied RGBA — or ``(image, RenderStats)`` with
     ``with_stats=True``.
 
     ``order``: optional precomputed depth permutation (amortized sort).
+    ``bg_depth``: the (H, W) view-space scene depth of ``config.depth_test``.
     """
     if config.tile_h != 32 or config.tile_w != 32:
         raise ValueError("the cuda backend requires tile_h == tile_w == 32")
@@ -73,17 +79,24 @@ def render_cuda(
     p = quantize_payload(sanitize_projected(projected), config)
     # Fields are permuted into depth order here, and the binning then works
     # purely in rank space: within a tile's segment the payload columns the
-    # compositor reads are then nearly ascending.
-    p = sort_by_depth(p) if order is None else permute_fields(p, order, 14)
+    # compositor reads are then nearly ascending.  The depth test keeps the
+    # view-z row (row 14) too.
+    n_rows = 15 if config.depth_test else 14
+    p = sort_by_depth(p, n_rows) if order is None else permute_fields(p, order, n_rows)
     binned = bin_splats(p, width, height, config, with_tiles=False, with_grad_map=need_grad)
     nty, ntx = tile_grid(width, height, config.tile_h, config.tile_w)
+    if config.depth_test:
+        # payload row 10 = the view-z row
+        rows = torch.cat([p.fields[:10], p.fields[ROW_VIEWZ : ROW_VIEWZ + 1]], dim=0)
+    else:
+        rows = p.fields[:10]
     if need_grad:
-        image = composite_splats_diff(p.fields[:10], binned, nty, ntx, height, width, config)
+        image = composite_splats_diff(rows, binned, nty, ntx, height, width, config, bg_depth=bg_depth)
     else:
         if config.payload_dtype == "packed":
             payload = pack_payload(p.fields)
         else:
-            payload = p.fields[:10].contiguous()
+            payload = rows.contiguous()
         image, _used = composite_splats(
             payload,
             binned.pair_splat,
@@ -95,6 +108,7 @@ def render_cuda(
             height,
             width,
             config,
+            bg_depth=bg_depth,
         )
     # After the last launch is queued: the only host read of the frame.
     warn_if_dropped(binned, config)
@@ -169,28 +183,33 @@ def render(
     ``with_stats=True`` returns ``(image, RenderStats)`` instead; pass the
     stats to :func:`gsplat_tpu_torch.ops.binning.report_stats`.
 
-    ``background_rgba``: (H, W, 4) scene color the splat layer is
-    under-composited over.  ``background_depth`` / ``config.depth_test``
-    (depth-tested compositing into a host scene) and ``config.wireframe`` are
-    later slices of the port and raise ``NotImplementedError``.
+    Compositing into a host scene (the reference's beauty-pass contract —
+    splats drawn after all opaque geometry, z-tested against the scene's
+    depth buffer but not z-written, under-blended over its colour):
+
+    * ``background_depth``: (H, W) float32 view-space scene depth — per
+      pixel, splat contributions behind it are killed before blending
+      (switches on ``config.depth_test``; the packed payload has no view-z
+      row, so ``RenderConfig`` refuses the two together);
+    * ``background_rgba``: (H, W, 4) scene colour the splat layer is
+      under-composited over (with or without the depth test).
+
+    ``config.wireframe`` runs the compositor's band test on this pass's
+    payload, as the JAX package's kernel path does (forward only); the
+    wireframe debug view itself is :func:`gsplat_tpu_torch.ops.wireframe.render_wireframe`.
     """
-    if background_depth is not None or config.depth_test:
-        raise NotImplementedError(
-            "depth-tested compositing (background_depth / config.depth_test) "
-            "is a later slice of the port (modes off the main path)"
-        )
-    if config.wireframe:
-        raise NotImplementedError(
-            "wireframe rendering is a later slice of the port (modes off the main path)"
-        )
+    if background_depth is not None and not config.depth_test:
+        config = dataclasses.replace(config, depth_test=True)
+    if config.depth_test and background_depth is None:
+        raise ValueError("config.depth_test requires background_depth")
     if backend == "auto":
         backend = "cuda"
     if backend == "cuda":
-        out = render_cuda(splats, camera, config, with_stats=with_stats)
+        out = render_cuda(splats, camera, config, with_stats=with_stats, bg_depth=background_depth)
     elif backend == "tiles":
-        out = render_tiles(splats, camera, config, with_stats=with_stats)
+        out = render_tiles(splats, camera, config, with_stats=with_stats, bg_depth=background_depth)
     elif backend == "reference":
-        image = render_reference(splats, camera, config)
+        image = render_reference(splats, camera, config, bg_depth=background_depth)
         if with_stats:
             # the O(N·H·W) oracle composites every splat — nothing can drop
             zero = torch.zeros((), dtype=torch.int32, device=image.device)

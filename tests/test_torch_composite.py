@@ -100,10 +100,14 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
     args = (f, ps, z, z, z, 2, 2, 64, 64)
     with pytest.raises(ValueError, match="32"):
         tcomp.composite_splats(*args, dataclasses.replace(cfg, tile_h=16, tile_w=16))
-    with pytest.raises(NotImplementedError, match="wireframe"):
-        tcomp.composite_splats(*args, dataclasses.replace(cfg, wireframe=True))
-    with pytest.raises(NotImplementedError, match="depth"):
+    with pytest.raises(ValueError, match="forward-only"):  # the band test has no backward
+        tcomp.composite_splats(*args, dataclasses.replace(cfg, wireframe=True), checkpoint=True)
+    with pytest.raises(ValueError, match="bg_depth"):  # the depth test needs the scene depth
         tcomp.composite_splats(*args, dataclasses.replace(cfg, depth_test=True))
+    with pytest.raises(TypeError):  # ... and the 11-row payload with the view-z row
+        tcomp.composite_splats(*args, dataclasses.replace(cfg, depth_test=True), bg_depth=torch.zeros((64, 64)))
+    with pytest.raises(ValueError, match="depth_test"):
+        tcomp.composite_splats(*args, cfg, bg_depth=torch.zeros((64, 64)))
     with pytest.raises(NotImplementedError, match="strided"):
         tcomp.composite_splats(*args, dataclasses.replace(cfg, row_stride=2))
     with pytest.raises(TypeError):  # packed config wants the (8, N) int32 matrix

@@ -152,3 +152,81 @@ def test_training_steps_on_the_card_launch_every_kernel(card):
     after = (kscan.launches, kcomp.launches_checkpoint, kcomp.launches_bwd, ksegsum.launches)
     assert after == (before[0] + 16, before[1] + 4, before[2] + 4, before[3] + 4)
     assert all(x == x for x in losses) and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_depth_test_forward_and_backward_match_plain(card, soft):
+    import dataclasses
+
+    from gsplat_tpu_torch.ops.projection import project_splats
+    from gsplat_tpu_torch.ops.rasterize_tiles import sort_by_depth
+    from gsplat_tpu_torch.ops.rasterize_ref import sanitize_projected
+
+    # _backward_case's scene and binning; its payload with the view-z row
+    fwd, b, d_out, g_pad = _backward_case(card, "float32", 1e-3, soft=soft)
+    g = torch.Generator(device=card).manual_seed(1)
+    splats = gt.random_splats(g, 5000, extent=0.8, scale_range=(0.01, 0.05), sh_scale=0.2, device=card)
+    cam = gt.make_camera([0.2, 0.4, 3.0], [0, 0, 0], 200, 120, device=card)
+    p = sort_by_depth(sanitize_projected(project_splats(splats, cam, 3, tight_footprint=not soft)), 15)
+    pay = torch.cat([p.fields[:10], p.fields[14:15]]).contiguous()
+    assert torch.equal(pay[:10], fwd[0])
+    fwd = (pay,) + fwd[1:-1] + (dataclasses.replace(fwd[-1], depth_test=True),)
+    xs = torch.linspace(0, 1, 200, device=card)[None, :]
+    bgd = ((2.0 + 1.5 * xs) * torch.ones((120, 1), device=card)).contiguous()
+    bgd[60] = float("nan")
+    before = (kcomp.launches_depth, kcomp.launches_bwd_depth)
+    img, used = kcomp.composite_splats(*fwd, bg_depth=bgd)
+    img_p, used_p = kcomp.composite_splats_plain(*fwd, bg_depth=bgd)
+    assert float((img - img_p).abs().max()) < 1e-5 and torch.equal(used, used_p)
+    _, used_c, tchk = kcomp.composite_splats(*fwd, checkpoint=True, bg_depth=bgd)
+    args = fwd[:5] + (used_c, b.grad_base, d_out, tchk, g_pad) + fwd[5:]
+    got = kcomp.composite_bwd(*args, bg_depth=bgd)
+    want = kcomp.composite_bwd_plain(*args, bg_depth=bgd)
+    assert (kcomp.launches_depth, kcomp.launches_bwd_depth) == (before[0] + 2, before[1] + 1)
+    for r in range(9):
+        assert float((got[r] - want[r]).abs().max()) <= 1e-5 * float(want[r].abs().max()), r
+    assert float(img[60].abs().max()) == 0.0  # the NaN row is killed
+
+
+def test_wireframe_kernel_matches_plain_and_oracle(card):
+    from gsplat_tpu_torch.ops import wireframe as wire
+
+    g = torch.Generator(device=card).manual_seed(4)
+    splats = gt.random_splats(g, 3000, extent=0.8, sh_scale=0.2, device=card)
+    cam = gt.make_camera([0.2, 0.4, 3.0], [0, 0, 0], 200, 120, device=card)
+    # a soft-cutoff config runs the same band test (the band reads no cutoff)
+    for line_px, soft in ((1.0, False), (2.5, False), (1.0, True)):
+        cfg = gt.RenderConfig(pairs_per_splat=12.0, soft_cutoff=soft)
+        args, b = wire._wireframe_inputs(splats, cam, cfg, line_px)
+        before = kcomp.launches_wire
+        img, used = kcomp.composite_splats(*args)
+        assert kcomp.launches_wire == before + 1 and int(b.dropped_pairs) == 0
+        img_p, used_p = kcomp.composite_splats_plain(*args)
+        assert float((img - img_p).abs().max()) < 1e-5 and torch.equal(used, used_p)
+        assert float(img[..., 3].mean()) > 0.01
+
+
+def test_probes_match_plain(card):
+    from gsplat_tpu_torch.ops.kernels import probes
+
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.rand((132 * 256 + 7,), generator=g, device=card) * 0.5 + 0.25
+    for variant in probes.ALU_VARIANTS:
+        got = probes.alu_probe(x, 64, variant)
+        want = probes.alu_probe_plain(x, 64, variant)
+        if variant == "expf":
+            assert float(((got - want).abs() / want.abs()).max()) <= 1e-6, variant
+        else:  # the float32 chains bit for bit
+            assert torch.equal(got, want), variant
+        # one link fewer moves (nearly) every value, and the chains keep their start
+        assert float((probes.alu_probe(x, 63, variant) == got).float().mean()) < 1e-3, variant
+        assert torch.unique(got).numel() > x.numel() // 2, variant
+    mat = torch.randn((16, 1 << 16), generator=g, device=card)
+    idx = torch.randint(0, 1 << 16, (100_003,), generator=g, device=card, dtype=torch.int32)
+    for access in ("contiguous", "column", "row"):
+        m = mat.t().contiguous() if access == "row" else mat
+        got = float(probes.gather_probe(m, idx, access))
+        want = float(probes.gather_probe_plain(m, idx, access))
+        assert abs(got - want) <= 1e-9 * float(probes.gather_probe_plain(m.abs(), idx, access)), access
+    assert torch.equal(probes.gather_probe(torch.zeros_like(mat), idx, "column_write"),
+                       probes.gather_probe_plain(torch.zeros_like(mat), idx, "column_write"))

@@ -140,12 +140,17 @@ def test_background_and_composite_over():
 def test_later_slices_raise_not_implemented():
     js, jc = jax_scene(n=20)
     ts, tc, tcfg = splats_to_torch(js), camera_to_torch(jc), to_config(EXACT)
+    # the strided tile mapping of the sharded renderer is the one mode still to come
     with pytest.raises(NotImplementedError, match="later slice"):
-        gt.render(ts, tc, tcfg, background_depth=torch.ones(64, 64))
+        gt.render(ts, tc, dataclasses.replace(tcfg, row_stride=2))
     with pytest.raises(NotImplementedError, match="later slice"):
+        gt.render(ts, tc, dataclasses.replace(tcfg, col_stride=3), background_depth=torch.ones(64, 64))
+    # the host-scene and wireframe modes render now (tests/test_torch_depth_composite.py,
+    # tests/test_torch_wireframe.py); the depth test without a depth still raises, as in JAX
+    assert gt.render(ts, tc, tcfg, background_depth=torch.ones(64, 64)).shape == (64, 64, 4)
+    assert gt.render(ts, tc, dataclasses.replace(tcfg, wireframe=True)).shape == (64, 64, 4)
+    with pytest.raises(ValueError, match="background_depth"):
         gt.render(ts, tc, dataclasses.replace(tcfg, depth_test=True))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        gt.render(ts, tc, dataclasses.replace(tcfg, wireframe=True))
     with pytest.raises(ValueError, match="unknown backend"):
         gt.render(ts, tc, tcfg, backend="pallas")
     with pytest.raises(ValueError, match="32"):

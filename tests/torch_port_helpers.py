@@ -45,14 +45,15 @@ def to_config(jcfg):
     return gt.RenderConfig(**dataclasses.asdict(jcfg))
 
 
-def jax_sorted_fields(jsplats, jcam, jcfg) -> np.ndarray:
+def jax_sorted_fields(jsplats, jcam, jcfg, n_rows=14) -> np.ndarray:
     """The JAX package's projected, sanitized, quantized, depth-sorted (16, N)
-    field matrix — the input of binning and compositing."""
+    field matrix — the input of binning and compositing.  ``n_rows=15`` keeps
+    the view-z row of the depth test."""
     p = gj.project_splats(
         jsplats, jcam, jcfg.sh_order,
         tight_footprint=not jcfg.soft_cutoff, only_sh=jcfg.only_sh,
     )
-    p = j_sort_by_depth(j_quantize(j_sanitize(p), jcfg))
+    p = j_sort_by_depth(j_quantize(j_sanitize(p), jcfg), n_rows=n_rows)
     return np.asarray(p.fields)
 
 
