@@ -23,12 +23,47 @@ Phases, each printing one JSON line; any failure exits non-zero:
              counts, one link moving nearly every value and the values
              hanging on their inputs; the gather probe's
              float64 sums within 1e-9 of the summed magnitudes and its writes
-             bit-equal).  Every time below is taken by utils/profiling.py.
+             bit-equal; both compositors in the strided/offset tile mapping
+             of the sharded renderer on the grids (2, 2) at (0, 0) and
+             (1, 1), (1, 4) at (0, 3), (4, 1) at (3, 0) and a contiguous strip
+             at tile row 17: the forward and its checkpoint variant bit-equal,
+             the backward rows as above).  Every time below is taken by
+             utils/profiling.py.
   reference  a small scene rendered through the main path against the
              plain tiled renderer and the O(N*H*W) oracle, and its gradient
              through the kernels against autograd through the plain tiled
              renderer; the same with the depth test against a slanted plane;
              a small wireframe against the O(N*H*W) wireframe oracle.
+  sharded_path  4 ranks (processes started with the spawn method, one gloo
+             group) sharing the one card render the main path's scene and
+             settings through render_sharded on the cyclic 2 x 2 tile grid:
+             five frames (launch counters zeroed before, read after, on each
+             rank) within eps * max colour of the single-device frame (the
+             early stop sits on each segment's chunk grid, which moves with
+             the strip); at transmittance_eps 0 bit-equal to the
+             single-device frame under the f32 gather, the bf16 gather and
+             the tuned strip exchange, no pair or column dropped; one
+             gradient within 2e-4 of the single-device one (of each field's
+             own max|g| with no floor, and in the 2-norm; a zero gradient
+             must fail the gate); each rank's strided kernels against their
+             plain versions and timed one rank at a time.  Times of 4
+             processes on one card are no scaling number.  Then, in this
+             process, the gradient taken apart: each rank's strip gradient
+             bit-equal to the full-frame one masked to its tiles, and the
+             ranks' gradient bit-equal to the rank-order float32 sum of those
+             carried through the projection.
+  sharded_train_path  4 ranks, dp 2 x sp 2: make_sharded_train_step takes
+             three steps on the train path's scene and targets (orbit cameras
+             0 and 1, eps 0); the first loss within 1e-5 of the mean of the
+             two single-device make_train_step losses, each rank's gradient
+             block within 2e-4 of the single-device mean in the 2-norm (a
+             zero gradient and a step without the dp mean must fail that
+             gate; the max-norm error is printed beside the single-device
+             gradient's own under an ulp's nudge of the loss), losses
+             falling, nothing dropped.
+  nccl_group one rank a card in an NCCL group joined through the standard
+             environment (env://): the collectives on CUDA tensors, no host
+             staging, against the ranks' seeded inputs.
   main_path  1,000,000 splats at 1920x1080, packed payload, eps 1e-3, pair
              budget tuned: five frames from an orbit through render(...,
              backend="auto", with_stats=True).  Launch counters are zeroed
@@ -57,22 +92,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
              inputs) of its path: error against the plain version, its time,
              the plain version's, a library call's where one exists, and the
              least time the card could take (bound, from utils/sol.py: the
-             data sheet's rates; bound_measured_ms at this run's rates).
+             data sheet's rates; bound_measured_ms at this run's rates); the
+             strided rows at rank 0's inputs on the sharded path.
 
 The last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
 import dataclasses
+import datetime
 import itertools
 import json
 import math
+import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: torch.cuda.is_available() is False - this script needs a CUDA card\n")
@@ -89,6 +131,10 @@ from gsplat_tpu_torch.ops.kernels import segsum as ksegsum
 from gsplat_tpu_torch.ops.projection import ROW_VIEWZ, project_splats
 from gsplat_tpu_torch.ops.rasterize_ref import quantize_payload, sanitize_projected
 from gsplat_tpu_torch.ops.rasterize_tiles import sort_by_depth
+from gsplat_tpu_torch.parallel import collectives as coll
+from gsplat_tpu_torch.parallel import render_sharded as rsh
+from gsplat_tpu_torch.render import render_strip
+from gsplat_tpu_torch.train.loss import render_loss
 from gsplat_tpu_torch.utils import profile_gather, sol, sol_calibrate
 from gsplat_tpu_torch.utils.profiling import PhaseTimer, cuda_time_ms, measure_fps, start_trace, stop_trace
 
@@ -104,7 +150,8 @@ GRAD_ROW_TOL = 1e-5
 SEGSUM_TOL = 1e-6
 # Whole-render gradients against autograd through the plain tiled renderer
 # (the thresholds of the JAX package's on-chip gate): relative to
-# max(1, |g|max) of the field.
+# max(1, |g|max) of the field.  The sharded paths hold their gradients to the
+# single-device ones by the same number with no floor (grad_rel_err).
 GRAD_TOL = 2e-4
 GRAD_TOL_PACKED_COLOR = 2e-2
 SPLAT_FIELDS = ("pos", "orient", "scale", "opacity", "color", "sh")
@@ -179,10 +226,10 @@ def occluder(width, height):
     return bgd, bg_rgba
 
 
-def compare_compositor(args, label, bgd=None):
-    img_k, used_k = kcomp.composite_splats(*args, bg_depth=bgd)
+def compare_compositor(args, label, bgd=None, offsets=(0, 0)):
+    img_k, used_k = kcomp.composite_splats(*args, bg_depth=bgd, offsets=offsets)
     torch.cuda.synchronize()
-    img_p, used_p = kcomp.composite_splats_plain(*args, bg_depth=bgd)
+    img_p, used_p = kcomp.composite_splats_plain(*args, bg_depth=bgd, offsets=offsets)
     torch.cuda.synchronize()
     if img_k.shape != img_p.shape or not torch.isfinite(img_k).all():
         fail(f"compositor {label}: bad output {tuple(img_k.shape)}")
@@ -200,8 +247,10 @@ def zero_counters():
     kcomp.launches_checkpoint = 0
     kcomp.launches_depth = 0
     kcomp.launches_wire = 0
+    kcomp.launches_strided = 0
     kcomp.launches_bwd = 0
     kcomp.launches_bwd_depth = 0
+    kcomp.launches_bwd_strided = 0
     ksegsum.launches = 0
     kprobes.launches.update({k: 0 for k in kprobes.launches})
 
@@ -215,8 +264,10 @@ def read_counters():
         "composite_fwd_checkpoint": kcomp.launches_checkpoint,
         "composite_fwd_depth": kcomp.launches_depth,
         "composite_fwd_wire": kcomp.launches_wire,
+        "composite_fwd_strided": kcomp.launches_strided,
         "composite_bwd": kcomp.launches_bwd,
         "composite_bwd_depth": kcomp.launches_bwd_depth,
+        "composite_bwd_strided": kcomp.launches_bwd_strided,
         "segsum": ksegsum.launches,
         "alu_probe": sum(kprobes.launches[v] for v in kprobes.ALU_VARIANTS),
         "gather_probe": sum(kprobes.launches[a] for a in kprobes.GATHER_ACCESSES),
@@ -241,16 +292,16 @@ def backward_inputs(splats, cam, cfg, seed):
     return fwd, b, d_out, g_pad
 
 
-def compare_checkpoint(fwd, label, bgd=None):
+def compare_checkpoint(fwd, label, bgd=None, offsets=(0, 0)):
     """The checkpoint variant: image and stop counters bit-equal to the
     variant without, checkpoints equal to the plain version's on the chunks
     a tile walked."""
-    img, used = kcomp.composite_splats(*fwd, bg_depth=bgd)
-    img_c, used_c, tchk = kcomp.composite_splats(*fwd, checkpoint=True, bg_depth=bgd)
+    img, used = kcomp.composite_splats(*fwd, bg_depth=bgd, offsets=offsets)
+    img_c, used_c, tchk = kcomp.composite_splats(*fwd, checkpoint=True, bg_depth=bgd, offsets=offsets)
     torch.cuda.synchronize()
     if not (torch.equal(img, img_c) and torch.equal(used, used_c)):
         fail(f"checkpoint variant {label}: image or stop counters differ from the variant without")
-    _, _, tchk_p = kcomp.composite_splats_plain(*fwd, checkpoint=True, bg_depth=bgd)
+    _, _, tchk_p = kcomp.composite_splats_plain(*fwd, checkpoint=True, bg_depth=bgd, offsets=offsets)
     chunk = fwd[-1].chunk
     nused = (used + chunk - 1) // chunk
     walked = torch.arange(tchk.shape[1], device=DEV)[None, :] < nused[:, None]
@@ -270,14 +321,14 @@ def gspace_rows(gspace, packed):
     return torch.cat([gspace[0:6].view(torch.float32), cg, cb, gspace[7:8].view(torch.float32)], dim=0)
 
 
-def compare_backward(fwd, b, used, tchk, d_out, g_pad, label, bgd=None):
+def compare_backward(fwd, b, used, tchk, d_out, g_pad, label, bgd=None, offsets=(0, 0)):
     """composite_bwd against composite_bwd_plain, row by row."""
     cfg = fwd[-1]
     packed = cfg.payload_dtype == "packed"
     args = fwd[:5] + (used, b.grad_base, d_out, tchk, g_pad) + fwd[5:]
-    got = kcomp.composite_bwd(*args, bg_depth=bgd)
+    got = kcomp.composite_bwd(*args, bg_depth=bgd, offsets=offsets)
     torch.cuda.synchronize()
-    want = kcomp.composite_bwd_plain(*args, bg_depth=bgd)
+    want = kcomp.composite_bwd_plain(*args, bg_depth=bgd, offsets=offsets)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"composite_bwd {label}: output {tuple(got.shape)} {got.dtype}, plain {tuple(want.shape)} {want.dtype}")
@@ -336,11 +387,67 @@ def compare_segsum(gspace, b, packed, label):
     return worst, worst_abs
 
 
+def strided_inputs(splats, cam, cfg, strides, offsets, strip_h, strip_w, with_grad_map=False):
+    """One strip's compositor inputs under the strided tile mapping: the
+    whole frame's projected splats, binned into the (strip_h, strip_w) strip
+    whose local tile (ty, tx) is the frame's tile (offsets[0] +
+    ty*strides[0], offsets[1] + tx*strides[1])."""
+    cfg = dataclasses.replace(cfg, row_stride=strides[0], col_stride=strides[1])
+    p = project_splats(splats, cam, cfg.sh_order, tight_footprint=not cfg.soft_cutoff)
+    p = sort_by_depth(quantize_payload(sanitize_projected(p), cfg))
+    b = binning.bin_splats(p, strip_w, strip_h, cfg, row_offset=offsets[0], col_offset=offsets[1],
+                           with_tiles=False, with_grad_map=with_grad_map)
+    nty, ntx = binning.tile_grid(strip_w, strip_h, cfg.tile_h, cfg.tile_w)
+    payload = kcomp.pack_payload(p.fields) if cfg.payload_dtype == "packed" else p.fields[:10].contiguous()
+    return (payload, b.pair_splat, b.tile_base, b.tile_phi, b.tile_span, nty, ntx, strip_h, strip_w, cfg), b
+
+
+def check_strided(fwd, b, offsets, label, seed):
+    """Both compositors in the strided mode against their plain versions:
+    the forward (and its checkpoint variant) bit for bit, the backward rows
+    within GRAD_ROW_TOL.  Returns (backward worst row rel err, tiles that
+    stopped early)."""
+    err, used = compare_compositor(fwd, label, offsets=offsets)
+    if err != 0.0:
+        fail(f"strided compositor {label}: not bit-equal to its plain version (max|diff| {err:.3e})")
+    used_c, tchk, _ = compare_checkpoint(fwd, label, offsets=offsets)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    d_out = torch.randn((fwd[7], fwd[8], 4), generator=g, device=DEV)
+    g_pad = binning.grad_pad_size(b.dest_of_exp.shape[0], fwd[5] * fwd[6], fwd[-1].chunk)
+    _, e_bwd, _ = compare_backward(fwd, b, used_c, tchk, d_out, g_pad, label, offsets=offsets)
+    if pairs_walked(used, b) == 0:
+        fail(f"strided compositor {label}: the strip walked no pairs")
+    return e_bwd, int((used < b.tile_span).sum())
+
+
+# (strides, offsets in tiles) of the strided checks: the cyclic grids of the
+# sharded renderer, and a contiguous strip at a row offset
+STRIDED_CHECKS = (((2, 2), (0, 0)), ((2, 2), (1, 1)), ((1, 4), (0, 3)), ((4, 1), (3, 0)), ((1, 1), (17, 0)))
+
+
 def splat_grads(splats, cam, cfg, weights, backend, bgd=None):
     leaves = {f: getattr(splats, f).detach().clone().requires_grad_(True) for f in SPLAT_FIELDS}
     image = gt.render(dataclasses.replace(splats, **leaves), cam, cfg, backend=backend, background_depth=bgd)
     (image * weights).sum().backward()
     return {f: leaves[f].grad for f in SPLAT_FIELDS}
+
+
+def grad_rel_err(got, want, scale):
+    """A gradient block against its reference: {"max": max|got - want| over
+    the field's own max|g| over the whole scene (`scale`, no floor), "l2":
+    the 2-norm of the difference over the 2-norm of `want`}."""
+    norm = float(want.norm())
+    if not bool(torch.isfinite(got).all()):
+        return {"max": math.inf, "l2": math.inf}
+    return {"max": float((got - want).abs().max()) / scale if scale > 0 else math.inf,
+            "l2": float((got - want).norm()) / norm if norm > 0 else math.inf}
+
+
+def worst_entries(got, want, other, k=3):
+    """The k entries where got and want differ most, with `other` beside."""
+    idx = torch.topk((got - want).abs().flatten(), k).indices.tolist()
+    return [[float(t.flatten()[i]) for t in (got, want, other)] for i in idx]
 
 
 # ----------------------------------------------------------------- phases
@@ -572,9 +679,33 @@ def phase_checks():
         worst = max(worst, err)
         comp_cases += 1
         wire_cases += 1
+    # The strided/offset tile mapping of the sharded renderer, forward and
+    # backward: every grid of STRIDED_CHECKS on the packed payload with the
+    # early stop, and a 2 x 2 cell on float32 without it.
+    strided_cases, strided_bwd = 0, 0.0
+    cam = gt.make_camera(eye=[0.0, 0.4, 3.0], target=[0, 0, 0], width=640, height=720, device=DEV)
+    cases = [(s, o, "packed", 1e-3) for s, o in STRIDED_CHECKS] + [((2, 2), (1, 1), "float32", 0.0)]
+    for (dy, dx), offsets, payload, eps in cases:
+        if (dy, dx) == (1, 1):
+            strip_h, strip_w = 4 * 32, cam.width  # tile rows 17..20
+        else:
+            strip_h = -(-cam.height // (dy * 32)) * 32
+            strip_w = -(-cam.width // (dx * 32)) * 32
+        cfg = gt.RenderConfig(payload_dtype=payload, transmittance_eps=eps, warn_on_drop=False)
+        label = f"strided {dy}x{dx} at {offsets} {payload} eps={eps}"
+        fwd, b = strided_inputs(splats, cam, cfg, (dy, dx), offsets, strip_h, strip_w, with_grad_map=True)
+        e_bwd, n_stop = check_strided(fwd, b, offsets, label, seed=61 + strided_cases)
+        strided_bwd = max(strided_bwd, e_bwd)
+        stops += n_stop
+        strided_cases += 1
+        comp_cases += 1
+        bwd["cases"] += 1
+    bwd["bwd_worst_rel_err"] = max(bwd["bwd_worst_rel_err"], strided_bwd)
     probe = check_probes()
     emit("checks", scan_cases=scan_cases, scan="bit-equal", compositor_cases=comp_cases,
-         depth_test_cases=depth_cases, wireframe_cases=wire_cases, probes=probe,
+         depth_test_cases=depth_cases, wireframe_cases=wire_cases, strided_cases=strided_cases,
+         strided_forward="bit-equal (and its checkpoint variant)", strided_bwd_worst_row_rel_err=strided_bwd,
+         probes=probe,
          compositor_max_abs_err=worst, tolerance=IMAGE_TOL, tiles_stopped_early=stops, used="equal",
          backward_cases=bwd["cases"], checkpoint_variant="image and used bit-equal",
          checkpoint_max_abs_err=bwd["checkpoint_max_abs_err"],
@@ -1369,6 +1500,565 @@ def phase_kernels(splats, cam, cfg, counts, train_counts):
     return rows
 
 
+# ----------------------------------------------------------------- sharded
+
+SHARDED_RANKS = 4
+SHARDED_STEPS = 3
+# A collective that waits longer than this raises in its rank (and the run
+# fails) instead of hanging until the script's time limit.
+SHARDED_TIMEOUT_S = 300
+SHARDED_DIR = Path(__file__).resolve().parent / "build" / "sharded"
+
+
+def _rank_entry(rank, world, out_dir, task, args, port):
+    """A spawned rank: joins the group, runs `task` (a function of this
+    module) and leaves its JSON result under out_dir.  With `port` None it
+    joins a gloo group through a file under out_dir, every rank on the one
+    card; with a port it joins an NCCL group through the standard
+    environment (env://, as a launcher starts a rank with one GPU) and
+    initialize_distributed makes cuda:LOCAL_RANK its device."""
+    timeout = datetime.timedelta(seconds=SHARDED_TIMEOUT_S)
+    if port is None:
+        torch.cuda.set_device(0)
+        gt.initialize_distributed("gloo", init_method=f"file://{out_dir}/rendezvous", world_size=world,
+                                  rank=rank, timeout=timeout)
+    else:
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK=str(rank))
+        if not gt.initialize_distributed("nccl", timeout=timeout):
+            raise RuntimeError("initialize_distributed did not join the group from the environment")
+    try:
+        result = globals()[task](rank, world, *args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def free_port():
+    """A free port on localhost (bound to 0 and released)."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(task, world, *args, port=None):
+    """Runs `task` in `world` processes started with the spawn method (never
+    fork after CUDA is up) and returns their results in rank order.  A rank
+    that fails ends the others and fails the run.  `port`: an NCCL group
+    joined through the environment at that port (else gloo, see
+    _rank_entry)."""
+    out_dir = SHARDED_DIR / task
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    try:
+        torch.multiprocessing.spawn(_rank_entry, args=(world, str(out_dir), task, args, port), nprocs=world,
+                                    join=True, start_method="spawn")
+    except Exception as e:  # a rank failed or was killed: the others are ended
+        fail(f"{task}: a rank failed: {e}")
+    results = []
+    for r in range(world):
+        with open(out_dir / f"rank{r}.json") as f:
+            results.append(json.load(f))
+    return results
+
+
+def one_rank_at_a_time(rank, world, fn):
+    """fn() on each rank in turn, the others parked at a barrier: ranks
+    sharing a card would otherwise share its time and each other's events."""
+    out = None
+    for r in range(world):
+        dist.barrier()
+        if r == rank:
+            out = fn()
+            torch.cuda.synchronize()
+    dist.barrier()
+    return out
+
+
+def strip_geometry(cfg, cam, d):
+    """What render_sharded makes of d ranks: the cyclic (dy, dx) grid and the
+    strip size, and the local config."""
+    nty, ntx = binning.tile_grid(cam.width, cam.height, cfg.tile_h, cfg.tile_w)
+    dy, dx = rsh._factor_grid(d, nty, ntx)
+    strip_h = -(-cam.height // (dy * cfg.tile_h)) * cfg.tile_h
+    strip_w = -(-cam.width // (dx * cfg.tile_w)) * cfg.tile_w
+    return (dy, dx), strip_h, strip_w, dataclasses.replace(cfg, row_stride=dy, col_stride=dx)
+
+
+def rank_strip_inputs(local, cam, cfg_local, mesh, strip_h, strip_w, with_grad_map=False):
+    """This rank's compositor inputs on the sharded path (the steps of
+    local_strip_render: project its block, exchange, sort, bin its cell).
+    Collective: every rank calls it."""
+    d = mesh.sp
+    p = project_splats(local, cam, cfg_local.sh_order, tight_footprint=not cfg_local.soft_cutoff)
+    p = quantize_payload(sanitize_projected(p), cfg_local)
+    full, _ = rsh.exchange_projected(p, cam.width, strip_h, d, cfg_local, mesh.sp_group)
+    ps = sort_by_depth(full)
+    offsets = (mesh.sp_index // cfg_local.col_stride, mesh.sp_index % cfg_local.col_stride)
+    b = binning.bin_splats(ps, strip_w, strip_h, cfg_local, row_offset=offsets[0], col_offset=offsets[1],
+                           with_tiles=False, with_grad_map=with_grad_map,
+                           budget=cfg_local.strip_pair_budget(ps.count, d))
+    nty, ntx = binning.tile_grid(strip_w, strip_h, cfg_local.tile_h, cfg_local.tile_w)
+    fwd = (kcomp.pack_payload(ps.fields), b.pair_splat, b.tile_base, b.tile_phi, b.tile_span,
+           nty, ntx, strip_h, strip_w, cfg_local)
+    return fwd, b, offsets
+
+
+def frame_diff_bound(splats, cam, cfg):
+    """How far a strip may differ from the single-device frame when tiles
+    stop early: the two walk the same pairs in the same order, but each
+    stops on the chunk grid of its own segment base, so one may go on after
+    every pixel of the tile has T <= eps - adding at most eps * (largest
+    colour) to a pixel, and at most eps to its alpha."""
+    p = quantize_payload(sanitize_projected(project_splats(splats, cam, cfg.sh_order)), cfg)
+    return cfg.transmittance_eps * max(1.0, float(p.fields[6:9].max())) + 1e-6
+
+
+def rank_sharded_render(rank, world, n_splats, width, height, frames):
+    """sharded_path on one rank: the main path's scene and settings through
+    render_sharded over `world` ranks of the one card."""
+    mesh = gt.splat_mesh(world, device=DEV)
+    splats = bench_scene(n_splats, seed=0)
+    cams = orbit_cameras(width, height, frames)
+    cfg = gt.RenderConfig(payload_dtype="packed", transmittance_eps=1e-3)
+    cfg = gt.tune_pair_budget(splats, cams, cfg, headroom=1.02)
+    local = gt.shard_splats(splats, mesh)
+    grid, strip_h, strip_w, cfg_local = strip_geometry(cfg, cams[0], world)
+    out = {"rank": rank, "grid": grid, "strip": [strip_h, strip_w], "block_columns": local.count}
+
+    for k in range(WARMUP_FRAMES):
+        gt.render_sharded(local, cams[k % len(cams)], cfg, mesh)
+    torch.cuda.synchronize()
+    dist.barrier()
+    zero_counters()
+    images, dropped, ex_dropped, wall = [], [], [], []
+    for cam in cams:
+        dist.barrier()
+        t0 = time.perf_counter()
+        image, stats = gt.render_sharded(local, cam, cfg, mesh, with_stats=True)
+        torch.cuda.synchronize()
+        dist.barrier()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        images.append(image)
+        dropped.append(int(stats.dropped_pairs))
+        ex_dropped.append(int(stats.exchange_dropped))
+    counts = read_counters()
+    want = expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames,
+                         composite_fwd=frames, composite_fwd_strided=frames)
+    if counts != want:
+        fail(f"sharded frames, rank {rank}: launch counts {counts}, expected {want}")
+    if any(dropped) or any(ex_dropped):
+        fail(f"sharded frames, rank {rank}: dropped_pairs {dropped}, exchange_dropped {ex_dropped}")
+    diffs = []
+    for cam, image in zip(cams, images):
+        check_frame(image, width, height, "sharded frame")
+        single = gt.render(splats, cam, cfg, backend="auto")
+        bound = frame_diff_bound(splats, cam, cfg)
+        diff = (image - single).abs()
+        err = float(diff.max())
+        if not err <= bound:
+            fail(f"sharded frame, rank {rank}: max|diff| {err:.3e} against the single-device frame "
+                 f"(bound {bound:.3e})")
+        diffs.append({"max_abs_diff": err, "bound": bound,
+                      "pixels_differing_share": float((diff.amax(dim=-1) > 0).float().mean())})
+    del images
+    out.update(frames=frames, dropped_pairs=dropped, exchange_dropped=ex_dropped, launches=counts,
+               frame_ms_4_processes_on_one_card=wall, vs_single_device_eps_1e_3=diffs)
+
+    # transmittance_eps = 0: the same pairs in the same order, so the frame
+    # must be the single-device frame bit for bit, under all three exchanges
+    cfg0 = dataclasses.replace(cfg, transmittance_eps=0.0)
+    tuned = rsh.tune_strip_exchange(splats, cams, world, cfg0)
+    if not tuned.strip_exchange_factor > 0.0:
+        fail("tune_strip_exchange kept the gather on the main path's scene")
+    policies = {
+        "f32_gather_cyclic": cfg0,
+        "bf16_gather_cyclic": dataclasses.replace(cfg0, payload_dtype="bfloat16"),
+        "strip_exchange_contiguous": tuned,
+    }
+    exact = {}
+    for name, c in policies.items():
+        image, stats = gt.render_sharded(local, cams[0], c, mesh, with_stats=True)
+        single = gt.render(splats, cams[0], dataclasses.replace(c, strip_exchange_factor=0.0), backend="auto")
+        equal = bool(torch.equal(image, single))
+        d, e = int(stats.dropped_pairs), int(stats.exchange_dropped)
+        if not equal or d or e:
+            fail(f"sharded {name}, rank {rank}: bit-equal {equal} (max|diff| "
+                 f"{float((image - single).abs().max()):.3e}), dropped_pairs {d}, exchange_dropped {e}")
+        exact[name] = {"bit_equal": equal, "dropped_pairs": d, "exchange_dropped": e}
+    exact["strip_exchange_contiguous"]["factor"] = tuned.strip_exchange_factor
+    out["vs_single_device_eps_0"] = exact
+
+    # one gradient of sum(image * w) through render_sharded on the cyclic
+    # grid (eps 0), against the single-device gradient
+    g = torch.Generator(device=DEV)
+    g.manual_seed(77)
+    weights = torch.randn((height, width, 4), generator=g, device=DEV)
+    leaves = {f: getattr(local, f).detach().clone().requires_grad_(True) for f in SPLAT_FIELDS}
+    zero_counters()
+    image = gt.render_sharded(dataclasses.replace(local, **leaves), cams[0], cfg0, mesh)
+    (image * weights).sum().backward()
+    counts = read_counters()
+    want = expect_counts(scan_i32_add=1, scan_i32_max=3, scan_i32=4, composite_fwd=1, composite_fwd_checkpoint=1,
+                         composite_fwd_strided=1, composite_bwd=1, composite_bwd_strided=1, segsum=1)
+    if counts != want:
+        fail(f"sharded gradient, rank {rank}: launch counts {counts}, expected {want}")
+    full = splat_grads(splats, cams[0], cfg0, weights, "auto")
+    cols = slice(mesh.sp_index * local.count, (mesh.sp_index + 1) * local.count)
+    grad_err, max_g, bad = {}, {}, []
+    for f in SPLAT_FIELDS:
+        got, want_g = leaves[f].grad, full[f][..., cols]
+        max_g[f] = scale = float(full[f].abs().max())
+        grad_err[f] = e = grad_rel_err(got, want_g, scale)
+        if not (e["max"] <= GRAD_TOL and e["l2"] <= GRAD_TOL):
+            bad.append(f"{f} differs by {e} (max|g| {scale:.3e})")
+        if grad_rel_err(torch.zeros_like(got), want_g, scale)["l2"] <= GRAD_TOL:
+            bad.append(f"{f}: the gate passes a zero gradient")
+    if bad:
+        fail(f"sharded gradient, rank {rank}: {bad} (tolerance {GRAD_TOL})")
+    # for sharded_gradient_cause, in the parent
+    torch.save({f: leaves[f].grad.cpu() for f in SPLAT_FIELDS}, SHARDED_DIR / "rank_sharded_render" / f"grad{rank}.pt")
+    out.update(gradient_rel_err=grad_err, gradient_max_abs=max_g, gradient_launches=counts)
+    del full, leaves, image
+
+    # this rank's strided kernels at its own inputs (main settings), timed
+    # one rank at a time
+    fwd, b, offsets = rank_strip_inputs(local, cams[0], cfg_local, mesh, strip_h, strip_w, with_grad_map=True)
+
+    def kernels():
+        r = {"offsets": offsets}
+        err, used = compare_compositor(fwd, f"sharded rank {rank}", offsets=offsets)
+        if err != 0.0:
+            fail(f"strided forward, rank {rank}: not bit-equal to its plain version ({err:.3e})")
+        r["fwd_ms"] = cuda_time_ms(lambda: kcomp.composite_splats(*fwd, offsets=offsets), 10, warmup=2)[0]
+        r["fwd_plain_ms"] = cuda_time_ms(lambda: kcomp.composite_splats_plain(*fwd, offsets=offsets))[0]
+        used_c, tchk, _ = compare_checkpoint(fwd, f"sharded rank {rank}", offsets=offsets)
+        gd = torch.Generator(device=DEV)
+        gd.manual_seed(90 + rank)
+        d_out = torch.randn((strip_h, strip_w, 4), generator=gd, device=DEV)
+        g_pad = binning.grad_pad_size(b.dest_of_exp.shape[0], fwd[5] * fwd[6], cfg.chunk)
+        gspace, e_rel, e_abs = compare_backward(fwd, b, used_c, tchk, d_out, g_pad, f"sharded rank {rank}",
+                                                offsets=offsets)
+        bargs = fwd[:5] + (used_c, b.grad_base, d_out, tchk, g_pad) + fwd[5:]
+        r["bwd_ms"] = cuda_time_ms(lambda: kcomp.composite_bwd(*bargs, offsets=offsets), 10, warmup=2)[0]
+        r["bwd_plain_ms"] = cuda_time_ms(lambda: kcomp.composite_bwd_plain(*bargs, offsets=offsets))[0]
+        walked = pairs_walked(used, b)
+        chk_bytes = int(((used_c + cfg.chunk - 1) // cfg.chunk).sum()) * 1024 * 4
+        in_bytes = (fwd[0].numel() + fwd[1].numel() + 3 * b.tile_base.numel()) * 4
+        img_bytes = strip_h * strip_w * 16
+        r.update(pairs_walked=walked, pairs_binned=int(b.tile_count.sum()), fwd_max_abs_err=err,
+                 bwd_max_abs_err=e_abs, bwd_worst_row_rel_err=e_rel,
+                 fwd_bytes=in_bytes + img_bytes + used.numel() * 4,
+                 bwd_bytes=in_bytes + 2 * used.numel() * 4 + img_bytes + chk_bytes + gspace.numel() * 4,
+                 tiles_stopped_early=int((used < b.tile_span).sum()))
+        return r
+
+    out["kernels"] = one_rank_at_a_time(rank, world, kernels)
+    return out
+
+
+def rank_sharded_train(rank, world, n_splats, width, height, steps):
+    """sharded_train_path on one rank: make_sharded_train_step on a dp 2 x
+    sp world/2 mesh, cameras 0 and 1 of the orbit, against the single-device
+    make_train_step on each camera."""
+    dp = 2
+    mesh = gt.make_mesh(batch=dp, splat=world // dp, device=DEV)
+    splats = bench_scene(n_splats, seed=0)
+    cams = orbit_cameras(width, height, dp)
+    main_cfg = gt.RenderConfig(payload_dtype="packed", transmittance_eps=1e-3)
+    targets = [perturbed_target(splats, c, main_cfg) for c in cams]
+    # eps 0: the strips walk the single-device frame's pairs, so loss and
+    # gradient can be held to the single-device step's
+    cfg = gt.tune_pair_budget(splats, cams, dataclasses.replace(main_cfg, transmittance_eps=0.0), headroom=1.05)
+    ref_losses, ref_grads = [], {}
+    for c, t in zip(cams, targets):
+        params = gt.params_from_splats(splats)
+        step = gt.make_train_step(gt.default_optimizer(params), c, cfg, backend="auto")
+        ref_losses.append(float(step(params, t)))
+        for k, v in params.as_dict().items():
+            ref_grads[k] = ref_grads.get(k, 0.0) + v.grad / dp
+        del params, step
+    # the witness of how far the single-device gradient itself moves when
+    # every cotangent moves by an ulp or two: the same loss times 1 + 2^-22,
+    # the gradient divided back
+    nudge = 1.0 + 2.0 ** -22
+    nudged = {}
+    for c, t in zip(cams, targets):
+        params = gt.params_from_splats(splats)
+        img = gt.render(gt.splats_from_params(params), c, cfg, backend="auto")
+        (render_loss(img[..., :3] + (1.0 - img[..., 3:4]), t, 0.2) * nudge).backward()
+        for k, v in params.as_dict().items():
+            nudged[k] = nudged.get(k, 0.0) + v.grad / nudge / dp
+        del params, img
+    params = gt.shard_params(gt.params_from_splats(splats), mesh)
+    step = gt.make_sharded_train_step(gt.default_optimizer(params), cams[0], mesh, cfg, backend="auto")
+    views = torch.stack([c.view for c in cams])
+    projs = torch.stack([c.proj for c in cams])
+    target_batch = torch.stack(targets)
+    torch.cuda.synchronize()
+    dist.barrier()
+    zero_counters()
+    losses, wall, grads = [], [], None
+    for k in range(steps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        losses.append(float(step(params, views, projs, target_batch)))
+        torch.cuda.synchronize()
+        dist.barrier()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if k == 0:
+            grads = {name: t.grad.clone() for name, t in params.as_dict().items()}
+    counts = read_counters()
+    strided = steps if mesh.sp_index > 0 else 0  # sp index 0's strip is the identity mapping
+    want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps, composite_fwd=steps,
+                         composite_fwd_checkpoint=steps, composite_fwd_strided=strided, composite_bwd=steps,
+                         composite_bwd_strided=strided, segsum=steps)
+    if counts != want:
+        fail(f"sharded training, rank {rank}: launch counts {counts}, expected {want}")
+    want_loss = sum(ref_losses) / dp
+    rel = abs(losses[0] - want_loss) / abs(want_loss)
+    if not all(math.isfinite(x) for x in losses) or not rel <= 1e-5:
+        fail(f"sharded training, rank {rank}: first loss {losses[0]!r} against the single-device mean "
+             f"{want_loss!r} (relative {rel:.3e}, tolerance 1e-5)")
+    if not losses[-1] < losses[0]:
+        fail(f"sharded training, rank {rank}: loss did not fall: {losses}")
+    n_local = params.count
+    cols = slice(mesh.sp_index * n_local, (mesh.sp_index + 1) * n_local)
+    # The gate is the 2-norm of the difference over the 2-norm of the block:
+    # single entries move by up to ~5e-4 of max|g| in the single-device
+    # gradient itself when the cotangents move by an ulp (`nudged`: the
+    # packed payload's bf16 colour sums flip, the projection's backward
+    # amplifies the rest), and the sharded loss's strip sums and SSIM halo
+    # move them by that much.
+    # planted fault: the step without the dp mean (a mesh with no dp group),
+    # from the same start; its gradient is this rank's camera's alone
+    faulty = gt.shard_params(gt.params_from_splats(splats), mesh)
+    faulty_step = gt.make_sharded_train_step(gt.default_optimizer(faulty), cams[0],
+                                             dataclasses.replace(mesh, dp_group=None), cfg, backend="auto")
+    faulty_step(faulty, views, projs, target_batch)
+    grad_err, max_g, caught, witness, bad = {}, {}, {}, {}, []
+    for k, v in grads.items():
+        want_g = ref_grads[k][..., cols]
+        max_g[k] = scale = float(ref_grads[k].abs().max())
+        grad_err[k] = e = grad_rel_err(v, want_g, scale)
+        witness[k] = {"nudged_single_vs_single": grad_rel_err(nudged[k][..., cols], want_g, scale),
+                      "worst_entries_sharded_single_nudged": worst_entries(v, want_g, nudged[k][..., cols])}
+        if not e["l2"] <= GRAD_TOL:
+            bad.append(f"{k} differs by {e} (max|g| {scale:.3e})")
+        caught[k] = {"zero_gradient": grad_rel_err(torch.zeros_like(v), want_g, scale),
+                     "no_dp_mean": grad_rel_err(getattr(faulty, k).grad, want_g, scale)}
+    missed = [f"{k}: {fault}" for k, c in caught.items() for fault, e in c.items() if e["l2"] <= GRAD_TOL]
+    if bad or missed:
+        emit("sharded_train_witness", rank=rank, max_abs_grad=max_g, gradient_rel_err=grad_err, witness=witness,
+             planted_faults=caught)
+        fail(f"sharded training, rank {rank}: {bad} (tolerance {GRAD_TOL}); planted faults passed: {missed}")
+    del faulty, faulty_step
+    strip_h = -(-height // (mesh.sp * cfg.tile_h)) * cfg.tile_h
+    contiguous = dataclasses.replace(cfg, row_assignment="contiguous")
+    with torch.no_grad():
+        _, stats = rsh.local_strip_render(gt.splats_from_params(params), cams[mesh.dp_index], strip_h, mesh.sp,
+                                          contiguous, "auto", mesh.sp_group, with_stats=True)
+    dropped, ex = int(stats.dropped_pairs), int(stats.exchange_dropped)
+    if dropped or ex:
+        fail(f"sharded training, rank {rank}: dropped_pairs {dropped}, exchange_dropped {ex} after the steps")
+    return {"rank": rank, "dp_index": mesh.dp_index, "sp_index": mesh.sp_index, "block_columns": n_local,
+            "losses": losses, "single_device_losses": ref_losses, "first_loss_rel_err": rel,
+            "gradient_rel_err": grad_err, "gradient_max_abs": max_g, "gradient_witness": witness,
+            "planted_faults_rel_err": caught,
+            "launches": counts, "dropped_pairs": dropped,
+            "step_ms_4_processes_on_one_card": wall}
+
+
+def phase_sharded_path(n_splats, width, height, frames):
+    results = spawn_ranks("rank_sharded_render", SHARDED_RANKS, n_splats, width, height, frames)
+    r0 = results[0]
+    emit("sharded_path", ranks=SHARDED_RANKS, backend="gloo", on="one card shared by the ranks",
+         splats=n_splats, size=f"{width}x{height}", grid=r0["grid"], strip=r0["strip"],
+         payload_dtype="packed", transmittance_eps=1e-3,
+         frame_ms_4_processes_on_one_card=[r["frame_ms_4_processes_on_one_card"] for r in results],
+         note="ranks share one card: these times are no scaling number",
+         vs_single_device_eps_1e_3=[r["vs_single_device_eps_1e_3"] for r in results],
+         vs_single_device_eps_0=r0["vs_single_device_eps_0"],
+         gradient_rel_err=[r["gradient_rel_err"] for r in results],
+         gradient_max_abs=r0["gradient_max_abs"],
+         per_rank=[{"rank": r["rank"], "launches": r["launches"], "gradient_launches": r["gradient_launches"],
+                    **{k: v for k, v in r["kernels"].items()}} for r in results])
+    emit("sharded_gradient_cause", **sharded_gradient_cause(n_splats, width, height, frames, SHARDED_RANKS))
+    return results
+
+
+def sharded_gradient_cause(n_splats, width, height, frames, world):
+    """Where the render_sharded gradient parts from the single-device one,
+    taken apart on this one device at the sharded_path's inputs.  Each
+    rank's strip gradient with respect to the sorted projected fields must
+    equal, bit for bit, the full-frame gradient with the cotangent masked to
+    that rank's tiles, and their float32 sum in rank order (what the
+    all_gather's transpose adds), carried back through the projection, must
+    be the ranks' gradient bit for bit.  The same sum taken in float64 is
+    set beside the single-device gradient: the two sides differ only by the
+    rounding of one sum of four, which the projection's backward amplifies
+    for some splats."""
+    splats = bench_scene(n_splats, seed=0)
+    cams = orbit_cameras(width, height, frames)
+    cfg = gt.tune_pair_budget(splats, cams, gt.RenderConfig(payload_dtype="packed", transmittance_eps=1e-3),
+                              headroom=1.02)
+    cfg0 = dataclasses.replace(cfg, transmittance_eps=0.0)
+    cam = cams[0]
+    (dy, dx), strip_h, strip_w, cfg_local = strip_geometry(cfg0, cam, world)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(77)
+    weights = torch.randn((height, width, 4), generator=g, device=DEV)
+    leaves = {f: getattr(splats, f).detach().clone().requires_grad_(True) for f in SPLAT_FIELDS}
+    p = project_splats(dataclasses.replace(splats, **leaves), cam, cfg0.sh_order,
+                       tight_footprint=not cfg0.soft_cutoff, only_sh=cfg0.only_sh)
+    ps = sort_by_depth(quantize_payload(sanitize_projected(p), cfg0))
+    fields = ps.fields
+    nty, ntx = binning.tile_grid(width, height, cfg0.tile_h, cfg0.tile_w)
+    b = binning.bin_splats(ps, width, height, cfg0, with_tiles=False, with_grad_map=True)
+    image = kcomp.composite_splats_diff(fields[:10], b, nty, ntx, height, width, cfg0)
+    single_f = torch.autograd.grad((image * weights).sum(), fields, retain_graph=True)[0]
+    ty = torch.arange(height, device=DEV) // cfg0.tile_h
+    tx = torch.arange(width, device=DEV) // cfg0.tile_w
+    ly = torch.arange(strip_h, device=DEV)
+    lx = torch.arange(strip_w, device=DEV)
+    parts, equal = [], []
+    for r in range(world):
+        ry, rx = r // dx, r % dx
+        mask = ((ty % dy == ry)[:, None] & (tx % dx == rx)[None, :])[..., None]
+        masked = torch.autograd.grad((image * weights * mask).sum(), fields, retain_graph=True)[0]
+        strip, _ = render_strip(ps, strip_w, strip_h, ry, cfg_local, "cuda", n_strips=world, col_offset=rx)
+        gy = (ry + (ly // cfg0.tile_h) * dy) * cfg0.tile_h + ly % cfg0.tile_h
+        gx = (rx + (lx // cfg0.tile_w) * dx) * cfg0.tile_w + lx % cfg0.tile_w
+        inside = ((gy < height)[:, None] & (gx < width)[None, :])[..., None]
+        w_strip = weights[gy.clamp(max=height - 1)][:, gx.clamp(max=width - 1)] * inside
+        parts.append(torch.autograd.grad((strip * w_strip).sum(), fields, retain_graph=True)[0])
+        equal.append(bool(torch.equal(parts[-1], masked)))
+        del masked, strip
+    if not all(equal):
+        fail(f"sharded gradient cause: a strip's gradient differs from the masked full-frame one: {equal}")
+    sum32 = parts[0]
+    for part in parts[1:]:
+        sum32 = sum32 + part
+    sum64 = torch.stack(parts).double().sum(0).float()
+    leaf_list = [leaves[f] for f in SPLAT_FIELDS]
+
+    def through_projection(cot):
+        return dict(zip(SPLAT_FIELDS, torch.autograd.grad(fields, leaf_list, grad_outputs=cot, retain_graph=True)))
+
+    single, rank_sum, rank_sum64 = (through_projection(c) for c in (single_f, sum32, sum64))
+    render_path = splat_grads(splats, cam, cfg0, weights, "auto")
+    blocks = [torch.load(SHARDED_DIR / "rank_sharded_render" / f"grad{r}.pt") for r in range(world)]
+    out = {"strip_gradient_equals_masked_full_frame": equal,
+           "fields_rank_sum_vs_single": grad_rel_err(sum32, single_f, float(single_f.abs().max())),
+           "fields_rank_sum_float64_vs_single": grad_rel_err(sum64, single_f, float(single_f.abs().max()))}
+    for f in SPLAT_FIELDS:
+        sharded = torch.cat([blk[f] for blk in blocks], dim=-1)[..., :n_splats].to(DEV)
+        scale = float(single[f].abs().max())
+        out[f] = {
+            "sharded_equals_rank_sum": bool(torch.equal(sharded, rank_sum[f])),
+            "single_equals_render_path": bool(torch.equal(single[f], render_path[f])),
+            "sharded_vs_single": grad_rel_err(sharded, single[f], scale),
+            "rank_sum_float64_vs_single": grad_rel_err(rank_sum64[f], single[f], scale),
+            "worst_entries_sharded_single_rank_sum_float64": worst_entries(sharded, single[f], rank_sum64[f]),
+        }
+        if not (out[f]["sharded_equals_rank_sum"] and out[f]["single_equals_render_path"]):
+            fail(f"sharded gradient cause: {f}: the ranks' gradient is not the rank-order sum of the strips' "
+                 f"gradients carried through the projection: {out[f]}")
+    return out
+
+
+def phase_sharded_train(n_splats, width, height, steps):
+    results = spawn_ranks("rank_sharded_train", SHARDED_RANKS, n_splats, width, height, steps)
+    emit("sharded_train_path", ranks=SHARDED_RANKS, mesh="dp 2 x sp 2", backend="gloo",
+         on="one card shared by the ranks", splats=n_splats, size=f"{width}x{height}", steps=steps,
+         payload_dtype="packed", transmittance_eps=0.0, cameras="orbit 0 and 1, one a dp row",
+         losses=results[0]["losses"], single_device_losses=results[0]["single_device_losses"],
+         note="ranks share one card: these times are no scaling number",
+         per_rank=results)
+    return results
+
+
+def rank_nccl_collectives(rank, world):
+    """The collectives of parallel/collectives.py over an NCCL group, on
+    CUDA tensors that go to NCCL as they are: the differentiable all_gather
+    (f32 and bf16 on the wire) and its transpose, all_to_all, psum and
+    pmean, each against what the ranks' seeded inputs give."""
+    group = dist.group.WORLD
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def block(seed, shape):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev)
+
+    xs = [block(100 + r, (16, 1000)) for r in range(world)]
+    cots = [block(200 + r, (16, 1000 * world)) for r in range(world)]
+    x = xs[rank].clone().requires_grad_(True)
+    y = coll.all_gather(x, group, dim=1)
+    y.backward(cots[rank])
+    want_grad = cots[0][:, rank * 1000 : (rank + 1) * 1000]
+    for r in range(1, world):
+        want_grad = want_grad + cots[r][:, rank * 1000 : (rank + 1) * 1000]
+    y16 = coll.all_gather(xs[rank].bfloat16().float(), group, dim=1, wire_dtype=torch.bfloat16)
+    a2a = coll.all_to_all(torch.stack([xs[rank][r] for r in range(world)]), group)
+    total = coll.psum(torch.tensor(float(rank + 1), device=dev), group)
+    mean = coll.pmean(torch.tensor(float(rank + 1), device=dev), group)
+    return {
+        "rank": rank, "backend": str(dist.get_backend(group)), "device": str(dev),
+        "device_is_local_rank": dev.index == rank,
+        "wire_on_card": bool(coll._wire(xs[rank], group).is_cuda),
+        "all_gather_equal": bool(torch.equal(y, torch.cat(xs, dim=1))),
+        "all_gather_grad_equal": bool(torch.equal(x.grad, want_grad)),
+        "all_gather_bf16_equal": bool(torch.equal(y16, torch.cat(xs, dim=1).bfloat16().float())),
+        "all_to_all_equal": bool(torch.equal(a2a, torch.stack([xs[r][rank] for r in range(world)]))),
+        "psum": float(total), "psum_want": world * (world + 1) / 2,
+        "pmean": float(mean), "pmean_want": (world + 1) / 2,
+    }
+
+
+def phase_nccl_group():
+    """One rank a card (the one card here) in an NCCL group joined through
+    the environment: the deployment path of initialize_distributed that the
+    gloo phases do not take."""
+    results = spawn_ranks("rank_nccl_collectives", torch.cuda.device_count(), port=free_port())
+    for r in results:
+        bad = [k for k, v in r.items() if v is False]
+        if r["backend"] != "nccl" or bad or r["psum"] != r["psum_want"] or r["pmean"] != r["pmean_want"]:
+            fail(f"nccl group, rank {r['rank']}: {r}")
+    emit("nccl_group", ranks=len(results), rendezvous="env://", per_rank=results)
+    return results
+
+
+def phase_sharded_kernels(sharded, train):
+    """The strided compositors at rank 0's inputs on the sharded path
+    (cyclic 2 x 2 grid, the main path's settings): rank 0's times, with
+    every rank's beside them."""
+    k0 = sharded[0]["kernels"]
+    fwd_launches = sum(r["launches"]["composite_fwd_strided"] + r["gradient_launches"]["composite_fwd_strided"]
+                       for r in sharded) + sum(r["launches"]["composite_fwd_strided"] for r in train)
+    bwd_launches = sum(r["gradient_launches"]["composite_bwd_strided"] for r in sharded) \
+        + sum(r["launches"]["composite_bwd_strided"] for r in train)
+    per_rank = [{k: r["kernels"][k] for k in ("offsets", "pairs_walked", "fwd_ms", "bwd_ms")} for r in sharded]
+    return [
+        compositor_row(
+            "composite_fwd_strided", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:314-316", fwd_launches,
+            k0["fwd_max_abs_err"], k0["fwd_ms"], k0["fwd_plain_ms"], k0["pairs_walked"], k0["fwd_bytes"], "fwd",
+            "beauty", variant=f"strided mapping, grid {sharded[0]['grid']}, rank 0 at offsets {k0['offsets']}",
+            launches_are="every strided launch of sharded_path and sharded_train_path, all ranks",
+            pairs_binned=k0["pairs_binned"], tiles_stopped_early=k0["tiles_stopped_early"], per_rank=per_rank),
+        compositor_row(
+            "composite_bwd_strided", BWD_SRC, "gsplat_tpu/ops/pallas/composite.py:509-510", bwd_launches,
+            k0["bwd_max_abs_err"], k0["bwd_ms"], k0["bwd_plain_ms"], k0["pairs_walked"], k0["bwd_bytes"], "bwd",
+            "beauty", variant=f"strided mapping, grid {sharded[0]['grid']}, rank 0 at offsets {k0['offsets']}",
+            launches_are="every strided launch of sharded_path and sharded_train_path, all ranks",
+            worst_row_rel_err=k0["bwd_worst_row_rel_err"], row_tolerance=GRAD_ROW_TOL),
+    ]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--splats", type=int, default=1_000_000)
@@ -1376,7 +2066,7 @@ def main():
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--steps", type=int, default=5, help="training steps after warm-up")
-    ap.add_argument("--stop-after", choices=("build", "checks", "reference", "host_scene"), default=None,
+    ap.add_argument("--stop-after", choices=("build", "checks", "reference", "sharded", "host_scene"), default=None,
                     help="a short run: stop after this phase (prints no result line)")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print what ptxas reports for each kernel (registers, shared memory, spills)")
@@ -1400,6 +2090,14 @@ def main():
     with phase("reference"):
         phase_reference()
     if args.stop_after == "reference":
+        return
+    with phase("sharded_path"):
+        sharded = phase_sharded_path(args.splats, args.width, args.height, args.frames)
+    with phase("sharded_train_path"):
+        sharded_train = phase_sharded_train(args.splats, args.width, args.height, SHARDED_STEPS)
+    with phase("nccl_group"):
+        phase_nccl_group()
+    if args.stop_after == "sharded":
         return
     with phase("main_path"):
         splats, cams, cfg, counts, frame_ms = phase_main_path(args.splats, args.width, args.height, args.frames)
@@ -1431,6 +2129,7 @@ def main():
         rows += phase_train_kernels(splats, cams[0], train_cfg, train_counts)
         rows += phase_host_kernels(splats, cams[0], dcfg, bgd, wcfg, host)
         rows += phase_probe_kernels(calib, by_probe, path_idx)
+        rows += phase_sharded_kernels(sharded, sharded_train)
     emit("done", seconds=round(time.time() - t0, 1),
          phase_seconds={name: round(v["max_ms"] / 1e3, 1) for name, v in timer.summary().items()})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -19,8 +19,10 @@ hand-written kernels, and the single-device trainer (``train/``,
 ``io/checkpoint.py``); compositing into a host scene (``background_depth``)
 and the wireframe views (``ops/wireframe.py``); the calibration probes and
 the H100 speed-of-light model (``utils/sol_calibrate.py``,
-``utils/profile_gather.py``, ``utils/sol.py``).  Sharding, the scene
-registry and file I/O are later slices.
+``utils/profile_gather.py``, ``utils/sol.py``); rendering and training
+sharded over ranks of ``torch.distributed`` (``parallel/``,
+``make_sharded_train_step``).  The scene registry and file I/O are later
+slices.
 """
 
 from .version import __version__
@@ -47,7 +49,16 @@ from .train.params import (
     params_from_splats,
     splats_from_params,
 )
-from .train.trainer import default_optimizer, make_train_step
+from .train.trainer import default_optimizer, make_sharded_train_step, make_train_step, shard_params
+from .train.loss import ssim_strip
+from .parallel.mesh import initialize_distributed, make_mesh, splat_mesh
+from .parallel.render_sharded import (
+    measure_strip_counts,
+    pad_splats,
+    render_sharded,
+    shard_splats,
+    tune_strip_exchange,
+)
 from .io.checkpoint import restore_checkpoint, save_checkpoint
 
 __all__ = [
@@ -88,6 +99,17 @@ __all__ = [
     "psnr",
     "default_optimizer",
     "make_train_step",
+    "make_sharded_train_step",
+    "shard_params",
+    "ssim_strip",
+    "initialize_distributed",
+    "make_mesh",
+    "splat_mesh",
+    "render_sharded",
+    "shard_splats",
+    "pad_splats",
+    "measure_strip_counts",
+    "tune_strip_exchange",
     "save_checkpoint",
     "restore_checkpoint",
 ]

@@ -2,10 +2,14 @@
 // walked in reverse and writes, for every pair, nine sums over the tile's 1024
 // pixels into the tile's own region of the gradient address space.
 //
-// Replaces the TPU kernel gsplat_tpu/ops/pallas/composite.py:_bwd_kernel, for
-// strides 1, with and without the depth test (a template flag).  What it
-// computes is the same, by the same identities:
+// Replaces the TPU kernel gsplat_tpu/ops/pallas/composite.py:_bwd_kernel,
+// with and without the depth test (a template flag).  What it computes is the
+// same, by the same identities:
 //
+//   * the forward's strided/offset tile mapping (composite_fwd.cu): block
+//     (ty, tx) is local tile (ty, tx) and global tile (row_off +
+//     ty*row_stride, col_off + tx*col_stride); pixel centres, and so dx and
+//     dy, from the global tile, the cotangent read and the guards local;
 //   * chunks nused-1 .. 0 with nused = ceil(used / chunk); inside a chunk the
 //     positions [max(c0, phi), min(c0 + chunk, used)) are the tile's own;
 //   * alpha of every (pair, pixel) is recomputed by the forward's own
@@ -102,7 +106,8 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
                      int* __restrict__ gout,           // (GROWS, g_pad) 32-bit words
                      long long g_pad,
                      int ntx, int height, int width, int chunk, int max_chunks,
-                     float max_alpha) {
+                     float max_alpha, int row_stride, int col_stride, int row_off,
+                     int col_off) {
     constexpr int ROWS = PayloadRows<PACKED, DEPTH>::value;
     constexpr int GROWS = PACKED ? 8 : NSUMS;
     extern __shared__ int smem[];
@@ -125,14 +130,17 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
     const int lane = tid & 31;
     const int warp = tid >> 5;
 
-    // This thread's pixels: column `lane`, rows 4*warp + k.
+    // This thread's pixels: column `lane`, rows 4*warp + k.  x, y local;
+    // the centres from the global tile.
+    const int gy0 = (row_off + ty * row_stride) * TILE;
+    const int gx0 = (col_off + tx * col_stride) * TILE;
     const int x = tx * TILE + lane;
-    const float px = (float)x + 0.5f;
+    const float px = (float)(gx0 + lane) + 0.5f;
     float py[PIX], dcr[PIX], dcg[PIX], dcb[PIX], u[PIX], zb[PIX];
 #pragma unroll
     for (int k = 0; k < PIX; ++k) {
         const int y = ty * TILE + 4 * warp + k;
-        py[k] = (float)y + 0.5f;
+        py[k] = (float)(gy0 + 4 * warp + k) + 0.5f;
         float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         zb[k] = far_depth();
         if (x < width && y < height) {
@@ -311,7 +319,8 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
 // checkpointed forward wrote them.  grad_base: (nty*ntx,) int32.
 // d_out: (height, width, 4) float32, 16-byte aligned.
 // gout: (9, g_pad) float32, or with packed != 0 (8, g_pad) int32; zero-filled
-// by the caller.
+// by the caller.  row_stride, col_stride, row_off, col_off: the forward's tile
+// mapping (1, 1, 0, 0 for a full frame; only that with depth != 0).
 extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int packed, int soft,
                                     int depth, const void* bgd, const void* pair_splat,
                                     const void* tile_base,
@@ -319,12 +328,16 @@ extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int pa
                                     const void* used, const void* grad_base, const void* d_out,
                                     const void* tchk, void* gout, long long g_pad, int nty,
                                     int ntx, int height, int width, int chunk, int max_chunks,
-                                    float max_alpha, void* stream) {
+                                    float max_alpha, int row_stride, int col_stride, int row_off,
+                                    int col_off, void* stream) {
     (void)tile_span;  // used[t] <= span[t] already bounds every walk
     const int num_tiles = nty * ntx;
     if (num_tiles <= 0) return 0;
     if (chunk <= 0 || chunk % SUB != 0) return (int)cudaErrorInvalidValue;
     if (depth && (packed || bgd == nullptr)) return (int)cudaErrorInvalidValue;
+    if (row_stride < 1 || col_stride < 1 || row_off < 0 || col_off < 0) return (int)cudaErrorInvalidValue;
+    if (depth && (row_stride != 1 || col_stride != 1 || row_off != 0 || col_off != 0))
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
     const int rows = packed ? 8 : (depth ? 11 : 10);
     const size_t words = (size_t)chunk * (1 + rows + NSUMS) + 2 * SUB * WARPS * NSUMS +
@@ -349,7 +362,7 @@ extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int pa
         if (e != cudaSuccess) return (int)e;                                                   \
         composite_bwd_kernel<P, S, D><<<num_tiles, gsplat::THREADS, shmem, s>>>(               \
             f, n_cols, bd, ps, tb, tp, us, gb, dout, tc, go, g_pad, ntx, height, width, chunk, \
-            max_chunks, max_alpha);                                                            \
+            max_chunks, max_alpha, row_stride, col_stride, row_off, col_off);                  \
     } while (0)
     if (depth) {
         if (soft) GSPLAT_LAUNCH(false, true, true); else GSPLAT_LAUNCH(false, false, true);

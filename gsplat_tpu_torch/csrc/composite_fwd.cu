@@ -6,9 +6,17 @@
 // _pixel_coords), with and without transmittance checkpoints (a template
 // flag), in three modes (a template parameter): the Gaussian beauty pass, the
 // same with the depth test against a host scene's depth, and the wireframe
-// band test; strides 1 only.  What it computes is the same:
+// band test.  What it computes is the same:
 //
-//   * pixel centres (tx*32 + col + 0.5, ty*32 + row + 0.5);
+//   * the strided/offset tile mapping of the sharded renderer: block
+//     (ty, tx) is local tile (ty, tx) of a (height, width) strip image and
+//     global tile (row_off + ty*row_stride, col_off + tx*col_stride) of the
+//     frame (the TPU kernel's off_ref, row_stride, col_stride).  Offsets are
+//     in tiles, and runtime ints: no new template instances;
+//   * pixel centres from the GLOBAL tile, an integer first and then a float
+//     plus 0.5: (gtx*32 + col + 0.5, gty*32 + row + 0.5), so a strip is bit
+//     for bit the matching pixels of a full-frame render.  The image write,
+//     the x < width, y < height guards, used[] and tchk stay LOCAL;
 //   * pair positions pos in [phi, span) counted from tile_base are the
 //     tile's own; the lanes before phi and from span on belong to the
 //     neighbouring tiles and are never read;
@@ -98,7 +106,8 @@ composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
                      int* __restrict__ used,     // (num_tiles,)
                      float* __restrict__ tchk,   // (num_tiles, max_chunks, 1024) if CHK
                      int ntx, int height, int width, int chunk, int max_chunks,
-                     float max_alpha, float t_eps, float line_px) {
+                     float max_alpha, float t_eps, float line_px,
+                     int row_stride, int col_stride, int row_off, int col_off) {
     constexpr bool DEPTH = MODE == MODE_DEPTH;
     constexpr int ROWS = PayloadRows<PACKED, DEPTH>::value;
     extern __shared__ int smem[];
@@ -115,13 +124,16 @@ composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
     const int col = tid & (TILE - 1);
     const int row0 = tid >> 5;
 
-    const float px = (float)(tx * TILE + col) + 0.5f;
+    // first global pixel row and column of this tile
+    const int gy0 = (row_off + ty * row_stride) * TILE;
+    const int gx0 = (col_off + tx * col_stride) * TILE;
+    const float px = (float)(gx0 + col) + 0.5f;
     float py[PIX], T[PIX], acc_r[PIX], acc_g[PIX], acc_b[PIX], zb[PIX];
 #pragma unroll
     for (int k = 0; k < PIX; ++k) {
-        const int y = ty * TILE + row0 + 8 * k;
+        const int y = ty * TILE + row0 + 8 * k;  // local
         const int x = tx * TILE + col;
-        py[k] = (float)y + 0.5f;
+        py[k] = (float)(gy0 + row0 + 8 * k) + 0.5f;
         T[k] = 1.0f;
         acc_r[k] = 0.0f;
         acc_g[k] = 0.0f;
@@ -198,6 +210,10 @@ composite_fwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
 // width) float32, else null), 2 wireframe band of half-width line_px.
 // image: (height, width, 4) float32, 16-byte aligned; used: (nty*ntx,) int32.
 // tchk: (nty*ntx, max_chunks, 1024) float32 to take the checkpoints, or null.
+// row_stride, col_stride (>= 1), row_off, col_off (>= 0): local tile (ty, tx)
+// is global tile (row_off + ty*row_stride, col_off + tx*col_stride); 1, 1, 0, 0
+// for a full frame.  Mode 1 takes only the full-frame mapping (its scene depth
+// is the local image's).
 // Combinations built: every mode with packed = 0; modes 0 and 2 packed;
 // soft and checkpoints in modes 0 and 1.  Others return cudaErrorInvalidValue.
 extern "C" int gsplat_composite_fwd(const void* fields, long long n_cols, int packed, int soft,
@@ -206,10 +222,14 @@ extern "C" int gsplat_composite_fwd(const void* fields, long long n_cols, int pa
                                     const void* tile_phi, const void* tile_span, void* image,
                                     void* used, void* tchk, int nty, int ntx, int height,
                                     int width, int chunk, int max_chunks, float max_alpha,
-                                    float t_eps, void* stream) {
+                                    float t_eps, int row_stride, int col_stride, int row_off,
+                                    int col_off, void* stream) {
     const int num_tiles = nty * ntx;
     if (num_tiles <= 0) return 0;
     if (mode < MODE_BEAUTY || mode > MODE_WIRE) return (int)cudaErrorInvalidValue;
+    if (row_stride < 1 || col_stride < 1 || row_off < 0 || col_off < 0) return (int)cudaErrorInvalidValue;
+    if (mode == MODE_DEPTH && (row_stride != 1 || col_stride != 1 || row_off != 0 || col_off != 0))
+        return (int)cudaErrorInvalidValue;
     if (mode == MODE_DEPTH && (packed || bgd == nullptr)) return (int)cudaErrorInvalidValue;
     if (mode == MODE_WIRE && (soft || tchk != nullptr)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -228,7 +248,7 @@ extern "C" int gsplat_composite_fwd(const void* fields, long long n_cols, int pa
 #define GSPLAT_LAUNCH(P, S, C, M)                                                        \
     composite_fwd_kernel<P, S, C, M><<<num_tiles, gsplat::THREADS, shmem, s>>>(          \
         f, n_cols, bd, ps, tb, tp, ts, im, u, tc, ntx, height, width, chunk, max_chunks, \
-        max_alpha, t_eps, line_px)
+        max_alpha, t_eps, line_px, row_stride, col_stride, row_off, col_off)
 #define GSPLAT_LAUNCH_C(P, S, M)                                                         \
     do {                                                                                 \
         if (tc) GSPLAT_LAUNCH(P, S, true, M); else GSPLAT_LAUNCH(P, S, false, M);        \

@@ -126,6 +126,20 @@ def _warn_dropped(dropped) -> None:
         _log.reset_once("dropped_pairs")
 
 
+def warn_exchange_dropped(dropped) -> None:
+    """Warn once while the sharded renderer's strip exchange drops splat
+    columns (a host read); re-arm when it clears."""
+    d = int(dropped)
+    if d > 0:
+        _log.warning_once(
+            f"strip-exchange bucket overflow — dropped {format_count(d)} "
+            "splat columns; raise RenderConfig.strip_exchange_factor",
+            key="strip_exchange_dropped",
+        )
+    else:
+        _log.reset_once("strip_exchange_dropped")
+
+
 @dataclasses.dataclass(frozen=True)
 class RenderStats:
     """Overflow counters carried out of a render as device tensors; reading
@@ -134,7 +148,8 @@ class RenderStats:
     * ``dropped_pairs`` — (tile, splat) pairs truncated by the pair budget
       or a tile's capacity (farthest-first).
     * ``exchange_dropped`` — splat columns dropped by strip-exchange bucket
-      overflow in the sharded renderer (later slice; ``None`` here).
+      overflow in the sharded renderer (``parallel/render_sharded.py``;
+      ``None`` for a single-device render).
     """
 
     dropped_pairs: torch.Tensor                       # () int32
@@ -153,6 +168,8 @@ def report_stats(stats: "RenderStats", config: RenderConfig = None) -> None:
     if config is not None and not config.warn_on_drop:
         return
     _warn_dropped(stats.dropped_pairs)
+    if stats.exchange_dropped is not None:
+        warn_exchange_dropped(stats.exchange_dropped)
 
 
 def warn_if_dropped(binned: "BinnedPairs", config: RenderConfig) -> None:

@@ -32,8 +32,14 @@ and with each other — across the two hard thresholds (see the source notes).
 Modes, as in the TPU kernel: ``config.depth_test`` (an 11th payload row, the
 splat's view-z, tested per pixel against the caller's (H, W) scene depth
 ``bg_depth``; forward and backward) and ``config.wireframe`` (an opaque band
-on the quad's edge in place of the Gaussian; forward only).  The strided
-tile mapping of the sharded renderer still raises ``NotImplementedError``.
+on the quad's edge in place of the Gaussian; forward only).  And the
+strided/offset tile mapping of the sharded renderer: ``config.row_stride`` /
+``config.col_stride`` and ``offsets=(row_offset, col_offset)``, in tiles —
+local tile (ty, tx) of the strip image is global tile (row_offset +
+ty·row_stride, col_offset + tx·col_stride), pixel centres come from the
+global tile and everything written stays local (kernels and plain versions
+alike).  The depth test takes only the full-frame mapping (the sharded
+renderer passes no scene depth, as in the JAX package).
 
 Also here, as torch ops: ``pack2`` / ``unpack2`` and ``pack_payload`` (the
 8-row int32 payload of ``payload_dtype="packed"``).
@@ -61,15 +67,18 @@ G_ROWS_PACKED = 8  # packed gradient-space rows (int32): the first six sums
                    # bit-cast, (Σdc_g·w, Σdc_b·w) as two bf16 halves, Σdp2
 
 # Wrapper calls that launched the forward kernel (any variant), those of them
-# that wrote checkpoints, that ran the depth test and that ran the wireframe
-# band test; calls that launched the backward kernel, and those of them with
-# the depth test.
+# that wrote checkpoints, that ran the depth test, that ran the wireframe band
+# test and that took a strided/offset tile mapping; calls that launched the
+# backward kernel, and those of them with the depth test and with a
+# strided/offset mapping.
 launches = 0
 launches_checkpoint = 0
 launches_depth = 0
 launches_wire = 0
+launches_strided = 0
 launches_bwd = 0
 launches_bwd_depth = 0
+launches_bwd_strided = 0
 
 # The forward kernel's modes (csrc/composite_fwd.cu).
 MODE_BEAUTY, MODE_DEPTH, MODE_WIRE = 0, 1, 2
@@ -88,7 +97,8 @@ def _library():
             ctypes.c_int, p, ctypes.c_float,
             p, p, p, p, p, p, p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, p,
+            ctypes.c_float, ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
         ]
         lib.gsplat_composite_fwd.restype = ctypes.c_int
         _lib_fwd = lib
@@ -105,7 +115,7 @@ def _library_bwd():
             ctypes.c_int, p,
             p, p, p, p, p, p, p, p, p, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, p,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
         ]
         lib.gsplat_composite_bwd.restype = ctypes.c_int
         _lib_bwd = lib
@@ -157,12 +167,27 @@ def kernel_mode(config: RenderConfig) -> int:
     return MODE_DEPTH if config.depth_test else MODE_BEAUTY
 
 
+def tile_mapping(config: RenderConfig, offsets) -> tuple:
+    """``(row_stride, col_stride, row_offset, col_offset)`` of the strided
+    tile mapping, checked.  ``offsets`` is ``(row_offset, col_offset)`` in
+    tiles."""
+    row_off, col_off = (int(o) for o in offsets)
+    if row_off < 0 or col_off < 0:
+        raise ValueError(f"tile offsets must be >= 0, got {offsets}")
+    mapping = (config.row_stride, config.col_stride, row_off, col_off)
+    if config.depth_test and mapping != (1, 1, 0, 0):
+        raise ValueError(
+            "the depth test takes the full-frame tile mapping only (strides 1, offsets 0): "
+            "its scene depth is the local image's"
+        )
+    return mapping
+
+
 def _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
-           bg_depth=None):
+           bg_depth=None, offsets=(0, 0)):
     if config.tile_h != TILE or config.tile_w != TILE:
         raise ValueError("the compositing kernel requires tile_h == tile_w == 32")
-    if config.row_stride != 1 or config.col_stride != 1:
-        raise NotImplementedError("strided tile mapping (sharded render) is a later slice of the port")
+    tile_mapping(config, offsets)
     packed = config.payload_dtype == "packed"
     if config.depth_test:
         if bg_depth is None:
@@ -224,16 +249,18 @@ class _PlainTiles:
     operations in the same order."""
 
     def __init__(self, fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed,
-                 bg_depth=None):
+                 bg_depth=None, offsets=(0, 0)):
         dev = fields.device
         f32 = torch.float32
         self.fields, self.pair_splat, self.packed, self.config = fields, pair_splat, packed, config
         self.phi, self.span = tile_phi, tile_span
         self.base = tile_base.long()
         self.p_len = pair_splat.shape[0]
+        row_stride, col_stride, row_off, col_off = tile_mapping(config, offsets)
         tile_ids = torch.arange(nty * ntx, dtype=torch.int32, device=dev)
-        origin_x = ((tile_ids % ntx) * TILE).to(f32)
-        origin_y = (torch.div(tile_ids, ntx, rounding_mode="floor") * TILE).to(f32)
+        # the global tile's first pixel, an integer first (rasterize_tiles.py)
+        origin_x = (((tile_ids % ntx) * col_stride + col_off) * TILE).to(f32)
+        origin_y = ((torch.div(tile_ids, ntx, rounding_mode="floor") * row_stride + row_off) * TILE).to(f32)
         iota = torch.arange(TILE, dtype=f32, device=dev) + 0.5
         self.px = origin_x[:, None, None] + iota[None, None, :]  # (T, 1, 32)
         self.py = origin_y[:, None, None] + iota[None, :, None]  # (T, 32, 1)
@@ -325,6 +352,7 @@ def composite_splats_plain(
     config: RenderConfig,
     checkpoint: bool = False,
     bg_depth: torch.Tensor = None,
+    offsets=(0, 0),
 ):
     """Plain PyTorch version of the compositing forward: a loop over chunk
     steps and, inside, over pair positions, vectorised over tiles and pixels,
@@ -338,14 +366,14 @@ def composite_splats_plain(
     The loop bounds are read to the host (one read for the chunk count, one
     per chunk for "any tile still walking")."""
     packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
-                    bg_depth)
+                    bg_depth, offsets)
     _check_forward_only(config, checkpoint)
     dev = fields.device
     f32 = torch.float32
     num_tiles = nty * ntx
     chunk = config.chunk
     tiles = _PlainTiles(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed,
-                        bg_depth)
+                        bg_depth, offsets)
 
     acc = torch.zeros((num_tiles, 3, TILE, TILE), dtype=f32, device=dev)
     trans = torch.ones((num_tiles, TILE, TILE), dtype=f32, device=dev)
@@ -392,6 +420,7 @@ def composite_splats(
     config: RenderConfig,
     checkpoint: bool = False,
     bg_depth: torch.Tensor = None,
+    offsets=(0, 0),
 ):
     """Composite every tile's pair segment front to back.
 
@@ -415,6 +444,11 @@ def composite_splats(
         scene depth; a splat's contribution to a pixel is killed unless its
         view-z is ``<=`` the pixel's depth.  Ignored by the wireframe band
         test.
+      offsets: ``(row_offset, col_offset)`` in tiles; with
+        ``config.row_stride`` / ``col_stride`` the strided tile mapping of a
+        strip: the (height, width) image is the strip's, local tile (ty, tx)
+        the frame's tile (row_offset + ty·row_stride, col_offset +
+        tx·col_stride), whose pixel centres every α is taken at.
 
     Returns:
       ``(image, used)``: (H, W, 4) float32 premultiplied RGBA (alpha = 1 − T)
@@ -427,16 +461,17 @@ def composite_splats(
     On CUDA tensors this launches the kernel (or raises); on CPU tensors it
     takes :func:`composite_splats_plain`.
     """
-    global launches, launches_checkpoint, launches_depth, launches_wire
+    global launches, launches_checkpoint, launches_depth, launches_wire, launches_strided
     packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
-                    bg_depth)
+                    bg_depth, offsets)
     _check_forward_only(config, checkpoint)
     if not fields.is_cuda:
         _check_columns(fields, pair_splat)
         return composite_splats_plain(
             fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
-            checkpoint=checkpoint, bg_depth=bg_depth,
+            checkpoint=checkpoint, bg_depth=bg_depth, offsets=offsets,
         )
+    mapping = tile_mapping(config, offsets)
     mode = kernel_mode(config)
     depth = bg_depth if mode == MODE_DEPTH else None
     _require_contiguous(fields=fields, pair_splat=pair_splat, tile_base=tile_base,
@@ -463,12 +498,13 @@ def composite_splats(
             tile_span.data_ptr(), image.data_ptr(), used.data_ptr(),
             tchk.data_ptr() if checkpoint else None,
             nty, ntx, height, width, config.chunk, n_chk,
-            config.max_alpha, config.transmittance_eps,
+            config.max_alpha, config.transmittance_eps, *mapping,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"gsplat_composite_fwd launch failed: CUDA error {err}")
     launches += 1
+    launches_strided += int(mapping != (1, 1, 0, 0))
     launches_depth += int(mode == MODE_DEPTH)
     launches_wire += int(mode == MODE_WIRE)
     if checkpoint:
@@ -510,6 +546,7 @@ def composite_bwd_plain(
     width: int,
     config: RenderConfig,
     bg_depth: torch.Tensor = None,
+    offsets=(0, 0),
 ) -> torch.Tensor:
     """Plain PyTorch version of the compositing backward, vectorised over
     tiles and pixels: chunks in reverse, each replayed forward from its
@@ -517,7 +554,7 @@ def composite_bwd_plain(
     back with the suffix accumulator ``u``.  Returns the gradient space (see
     :func:`composite_bwd`)."""
     packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
-                    bg_depth)
+                    bg_depth, offsets)
     _check_forward_only(config, True)
     num_tiles = nty * ntx
     _check_bwd(used, grad_base, d_out, tchk, g_pad, num_tiles, height, width, config, fields.device)
@@ -525,7 +562,7 @@ def composite_bwd_plain(
     f32 = torch.float32
     chunk = config.chunk
     tiles = _PlainTiles(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed,
-                        bg_depth)
+                        bg_depth, offsets)
 
     gspace = torch.zeros((N_SUMS, g_pad), dtype=f32, device=dev)
     d_tiles = _to_tiles(d_out, nty, ntx)  # off-image pixels: exact zeros
@@ -605,6 +642,7 @@ def composite_bwd(
     width: int,
     config: RenderConfig,
     bg_depth: torch.Tensor = None,
+    offsets=(0, 0),
 ) -> torch.Tensor:
     """Backward of :func:`composite_splats` up to the per-pair moment sums.
 
@@ -612,7 +650,8 @@ def composite_bwd(
     forward returned them, ``grad_base`` (``ops/binning.py``), the cotangent
     ``d_out`` (H, W, 4) float32 and ``g_pad`` (``binning.grad_pad_size``).
     With ``config.depth_test`` the same ``bg_depth`` as the forward's: killed
-    pixels have α = 0 and add exact zeros.  Wireframe mode has no backward.
+    pixels have α = 0 and add exact zeros; with a strided config the same
+    ``offsets``.  Wireframe mode has no backward.
 
     Returns the gradient address space: ``(9, g_pad)`` float32 whose column
     ``grad_base[t] + pos`` holds, for position ``pos`` of tile ``t``'s
@@ -626,9 +665,9 @@ def composite_bwd(
     On CUDA tensors this launches the kernel (or raises); on CPU tensors it
     takes :func:`composite_bwd_plain`.
     """
-    global launches_bwd, launches_bwd_depth
+    global launches_bwd, launches_bwd_depth, launches_bwd_strided
     packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
-                    bg_depth)
+                    bg_depth, offsets)
     _check_forward_only(config, True)
     num_tiles = nty * ntx
     _check_bwd(used, grad_base, d_out, tchk, g_pad, num_tiles, height, width, config, fields.device)
@@ -636,8 +675,9 @@ def composite_bwd(
         _check_columns(fields, pair_splat)
         return composite_bwd_plain(
             fields, pair_splat, tile_base, tile_phi, tile_span, used, grad_base, d_out, tchk,
-            g_pad, nty, ntx, height, width, config, bg_depth=bg_depth,
+            g_pad, nty, ntx, height, width, config, bg_depth=bg_depth, offsets=offsets,
         )
+    mapping = tile_mapping(config, offsets)
     depth = config.depth_test
     _require_contiguous(fields=fields, pair_splat=pair_splat, tile_base=tile_base, tile_phi=tile_phi,
                         tile_span=tile_span, used=used, grad_base=grad_base, d_out=d_out, tchk=tchk,
@@ -657,12 +697,13 @@ def composite_bwd(
             used.data_ptr(), grad_base.data_ptr(), d_out.data_ptr(), tchk.data_ptr(),
             gspace.data_ptr(), g_pad,
             nty, ntx, height, width, config.chunk, max_chunks(config),
-            config.max_alpha, torch.cuda.current_stream().cuda_stream,
+            config.max_alpha, *mapping, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"gsplat_composite_bwd launch failed: CUDA error {err}")
     launches_bwd += 1
     launches_bwd_depth += int(depth)
+    launches_bwd_strided += int(mapping != (1, 1, 0, 0))
     return gspace
 
 
@@ -677,7 +718,7 @@ class CompositeSplats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fields, pair_splat, tile_base, tile_phi, tile_span, grad_base,
                 dest_of_exp, exp_offsets, exp_counts, order, nty, ntx, height, width, config,
-                bg_depth=None):
+                bg_depth=None, offsets=(0, 0)):
         _check_forward_only(config, True)
         # Packing to int32 happens here, inside the function: an int32 tensor
         # carries no gradient.
@@ -688,12 +729,12 @@ class CompositeSplats(torch.autograd.Function):
         bgd = bg_depth.detach() if bg_depth is not None else None
         image, used, tchk = composite_splats(
             payload, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
-            checkpoint=True, bg_depth=bgd,
+            checkpoint=True, bg_depth=bgd, offsets=offsets,
         )
         ctx.save_for_backward(fields, payload, pair_splat, tile_base, tile_phi, tile_span, used,
                               grad_base, dest_of_exp, exp_offsets, exp_counts, tchk, bgd)
         ctx.order = order
-        ctx.geometry = (nty, ntx, height, width, config)
+        ctx.geometry = (nty, ntx, height, width, config, offsets)
         return image
 
     @staticmethod
@@ -703,13 +744,13 @@ class CompositeSplats(torch.autograd.Function):
 
         (fields, payload, pair_splat, tile_base, tile_phi, tile_span, used,
          grad_base, dest_of_exp, exp_offsets, exp_counts, tchk, bgd) = ctx.saved_tensors
-        nty, ntx, height, width, config = ctx.geometry
+        nty, ntx, height, width, config, offsets = ctx.geometry
         packed = config.payload_dtype == "packed"
         g_pad = grad_pad_size(dest_of_exp.shape[0], nty * ntx, config.chunk)
         gspace = composite_bwd(
             payload, pair_splat, tile_base, tile_phi, tile_span, used, grad_base,
             g.to(torch.float32).contiguous(), tchk, g_pad, nty, ntx, height, width, config,
-            bg_depth=bgd,
+            bg_depth=bgd, offsets=offsets,
         )
         # Per-splat raw-moment sums (9, N), in the order of ``fields``.
         m = segsum_by_splat(gspace, dest_of_exp, exp_offsets, exp_counts, order=ctx.order, packed=packed)
@@ -748,20 +789,22 @@ class CompositeSplats(torch.autograd.Function):
                 [d_fields, d_fields.new_zeros((fields.shape[0] - P_ROWS, d_fields.shape[1]))], dim=0
             )
         d_bgd = torch.zeros_like(bgd) if ctx.needs_input_grad[15] else None
-        return (d_fields,) + (None,) * 14 + (d_bgd,)
+        return (d_fields,) + (None,) * 14 + (d_bgd, None)
 
 
-def composite_splats_diff(fields, binned, nty, ntx, height, width, config, order=None, bg_depth=None):
+def composite_splats_diff(fields, binned, nty, ntx, height, width, config, order=None, bg_depth=None,
+                          offsets=(0, 0)):
     """Differentiable compositing of float ``(≥10, N)`` field rows over the
     pairs of ``binned`` (``bin_splats(..., with_grad_map=True)``).  Returns
     the (H, W, 4) image.  ``order``: the depth permutation when ``fields`` is
     in storage order (``bin_splats(..., order=...)``).  With
     ``config.depth_test`` ``fields`` holds 11 rows (row 10 the view-z) and
-    ``bg_depth`` is the (H, W) scene depth."""
+    ``bg_depth`` is the (H, W) scene depth.  ``offsets``: the strip's tile
+    offsets under a strided config (:func:`composite_splats`)."""
     if binned.dest_of_exp is None:
         raise ValueError("composite_splats_diff needs bin_splats(..., with_grad_map=True)")
     return CompositeSplats.apply(
         fields, binned.pair_splat, binned.tile_base, binned.tile_phi, binned.tile_span,
         binned.grad_base, binned.dest_of_exp, binned.exp_offsets, binned.exp_counts,
-        order, nty, ntx, height, width, config, bg_depth,
+        order, nty, ntx, height, width, config, bg_depth, tuple(int(o) for o in offsets),
     )

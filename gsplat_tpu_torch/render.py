@@ -20,7 +20,9 @@ Backends:
 
 Compositing into a host scene (``background_depth``, ``background_rgba``) and
 the wireframe debug view (``ops/wireframe.py``) ride the same kernels in
-their depth-test and band-test modes.
+their depth-test and band-test modes; :func:`render_strip` (one device's
+strip of a sharded render, ``parallel/render_sharded.py``) in their
+strided/offset tile mapping.
 """
 
 from __future__ import annotations
@@ -41,8 +43,34 @@ from .ops.binning import (
 from .ops.kernels.composite import composite_splats, composite_splats_diff, pack_payload
 from .ops.projection import ROW_VIEWZ, project_splats
 from .ops.rasterize_ref import quantize_payload, render_reference, sanitize_projected
-from .ops.rasterize_tiles import permute_fields, render_tiles, sort_by_depth
+from .ops.rasterize_tiles import (
+    build_tile_lists,
+    composite_tile_lists,
+    permute_fields,
+    render_tiles,
+    sort_by_depth,
+)
 from .utils.config import RenderConfig
+
+
+def _composite_cuda(p, binned, nty, ntx, height, width, config, need_grad, bg_depth=None, offsets=(0, 0)):
+    """The kernel path's compositing of binned pairs: the differentiable
+    ``CompositeSplats`` when a gradient is needed, else one forward launch on
+    the payload (packed into 8 int32 rows for ``payload_dtype="packed"``)."""
+    if config.depth_test:
+        # payload row 10 = the view-z row
+        rows = torch.cat([p.fields[:10], p.fields[ROW_VIEWZ : ROW_VIEWZ + 1]], dim=0)
+    else:
+        rows = p.fields[:10]
+    if need_grad:
+        return composite_splats_diff(rows, binned, nty, ntx, height, width, config, bg_depth=bg_depth,
+                                     offsets=offsets)
+    payload = pack_payload(p.fields) if config.payload_dtype == "packed" else rows.contiguous()
+    image, _used = composite_splats(
+        payload, binned.pair_splat, binned.tile_base, binned.tile_phi, binned.tile_span,
+        nty, ntx, height, width, config, bg_depth=bg_depth, offsets=offsets,
+    )
+    return image
 
 
 def render_cuda(
@@ -85,36 +113,67 @@ def render_cuda(
     p = sort_by_depth(p, n_rows) if order is None else permute_fields(p, order, n_rows)
     binned = bin_splats(p, width, height, config, with_tiles=False, with_grad_map=need_grad)
     nty, ntx = tile_grid(width, height, config.tile_h, config.tile_w)
-    if config.depth_test:
-        # payload row 10 = the view-z row
-        rows = torch.cat([p.fields[:10], p.fields[ROW_VIEWZ : ROW_VIEWZ + 1]], dim=0)
-    else:
-        rows = p.fields[:10]
-    if need_grad:
-        image = composite_splats_diff(rows, binned, nty, ntx, height, width, config, bg_depth=bg_depth)
-    else:
-        if config.payload_dtype == "packed":
-            payload = pack_payload(p.fields)
-        else:
-            payload = rows.contiguous()
-        image, _used = composite_splats(
-            payload,
-            binned.pair_splat,
-            binned.tile_base,
-            binned.tile_phi,
-            binned.tile_span,
-            nty,
-            ntx,
-            height,
-            width,
-            config,
-            bg_depth=bg_depth,
-        )
+    image = _composite_cuda(p, binned, nty, ntx, height, width, config, need_grad, bg_depth=bg_depth)
     # After the last launch is queued: the only host read of the frame.
     warn_if_dropped(binned, config)
     if with_stats:
         return image, RenderStats(dropped_pairs=binned.dropped_pairs)
     return image
+
+
+def render_strip(
+    projected,
+    width: int,
+    strip_h: int,
+    row_offset: int,
+    config: RenderConfig,
+    backend: str = "cuda",
+    n_strips: int = 1,
+    col_offset: int = 0,
+):
+    """Bin + composite one device's strip of tile rows (the counterpart of
+    the JAX package's ``parallel.render_sharded._render_strip``).
+
+    ``projected`` is the whole sanitized, depth-sorted projected-splat set
+    (``sort_by_depth``).  The strip is a (strip_h, width) image whose
+    local tile (ℓy, ℓx) is the frame's tile (``row_offset + ℓy·row_stride``,
+    ``col_offset + ℓx·col_stride``) under ``config``'s strides; offsets are
+    in tiles.  Splat coordinates are never shifted, so a strip is bit for
+    bit the matching pixels of a full-frame render that walks the same pairs
+    (``transmittance_eps = 0``; with an early stop, the stop grid is anchored
+    at each tile's chunk-aligned segment base, which moves with the strip).
+    The pair budget is ``config.strip_pair_budget(n, n_strips)``.
+
+    Backends: ``"cuda"`` — the scans and the compositor through the kernel
+    wrappers in their strided mode, differentiable through
+    ``CompositeSplats`` (the gradient map is built when the fields require a
+    gradient); ``"tiles"`` — the plain tiled compositor with the same
+    mapping.  Returns ``(image, dropped_pairs)``.
+    """
+    if config.depth_test:
+        raise ValueError("a strip render takes no scene depth (config.depth_test)")
+    if backend == "auto":
+        backend = "cuda"
+    if backend not in ("cuda", "tiles"):
+        raise ValueError(f"unknown strip backend {backend!r}")
+    p = projected
+    cuda = backend == "cuda"
+    need_grad = cuda and torch.is_grad_enabled() and p.fields.requires_grad
+    binned = bin_splats(
+        p, width, strip_h, config, row_offset=row_offset,
+        with_tiles=not cuda, with_grad_map=need_grad,
+        budget=config.strip_pair_budget(p.count, n_strips), col_offset=col_offset,
+    )
+    nty, ntx = tile_grid(width, strip_h, config.tile_h, config.tile_w)
+    if cuda:
+        image = _composite_cuda(p, binned, nty, ntx, strip_h, width, config, need_grad,
+                                offsets=(row_offset, col_offset))
+    else:
+        lists = build_tile_lists(binned, nty * ntx, config.tile_capacity, p.count)
+        image = composite_tile_lists(lists, p.fields, width, strip_h, config, row_offset=row_offset,
+                                     col_offset=col_offset)
+    warn_if_dropped(binned, config)
+    return image, binned.dropped_pairs
 
 
 def measure_pairs(
@@ -198,6 +257,11 @@ def render(
     payload, as the JAX package's kernel path does (forward only); the
     wireframe debug view itself is :func:`gsplat_tpu_torch.ops.wireframe.render_wireframe`.
     """
+    if config.row_stride != 1 or config.col_stride != 1:
+        raise ValueError(
+            "row_stride/col_stride map a sharded render's strips (render_strip, "
+            "parallel.render_sharded); a full frame takes strides 1"
+        )
     if background_depth is not None and not config.depth_test:
         config = dataclasses.replace(config, depth_test=True)
     if config.depth_test and background_depth is None:

@@ -1,6 +1,6 @@
 """Image losses for splat fitting: L1 + DSSIM, the standard 3DGS objective
-(counterpart of ``gsplat_tpu.train.loss``; ``ssim_strip`` and its halo belong
-to the multi-GPU slice).
+(counterpart of ``gsplat_tpu.train.loss``), and SSIM over row strips sharded
+across ranks (``ssim_strip``, with its halo exchange).
 
 The separable 11-tap Gaussian filter of SSIM is a depthwise
 ``torch.nn.functional.conv2d`` (the JAX package leaves it to XLA's
@@ -72,18 +72,73 @@ def ssim(
     c2: float = 0.03**2,
 ) -> torch.Tensor:
     """Mean SSIM over an (H, W, C) image pair in [0, 1]."""
-    w = torch.from_numpy(_gaussian_window(window_size, sigma)).to(pred.device)
-    mu_p = _filter2d_separable(pred, w)
-    mu_t = _filter2d_separable(target, w)
+    return torch.mean(_ssim_map(pred, target, window_size, sigma, c1, c2))
+
+
+def _ssim_map(p, t, window_size, sigma, c1, c2):
+    w = torch.from_numpy(_gaussian_window(window_size, sigma)).to(p.device)
+    mu_p = _filter2d_separable(p, w)
+    mu_t = _filter2d_separable(t, w)
     mu_pp = mu_p * mu_p
     mu_tt = mu_t * mu_t
     mu_pt = mu_p * mu_t
-    var_p = _filter2d_separable(pred * pred, w) - mu_pp
-    var_t = _filter2d_separable(target * target, w) - mu_tt
-    cov = _filter2d_separable(pred * target, w) - mu_pt
+    var_p = _filter2d_separable(p * p, w) - mu_pp
+    var_t = _filter2d_separable(t * t, w) - mu_tt
+    cov = _filter2d_separable(p * t, w) - mu_pt
     num = (2.0 * mu_pt + c1) * (2.0 * cov + c2)
     den = (mu_pp + mu_tt + c1) * (var_p + var_t + c2)
-    return torch.mean(num / den)
+    return num / den
+
+
+def _halo_exchange(x: torch.Tensor, group, n_strips: int, halo: int) -> torch.Tensor:
+    """Extend a row strip with ``halo`` rows from each neighbour over the
+    group.  The first and last strips receive zeros — the same zero padding
+    the full-image filter applies at the frame's top and bottom.
+    Differentiable: a halo row's gradient goes back to its owner."""
+    from ..parallel.collectives import ppermute
+
+    up = ppermute(x[-halo:], group, [(i, i + 1) for i in range(n_strips - 1)])
+    dn = ppermute(x[:halo], group, [(i + 1, i) for i in range(n_strips - 1)])
+    return torch.cat([up, x, dn], dim=0)
+
+
+def ssim_strip_map(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    group,
+    n_strips: int,
+    window_size: int = 11,
+    sigma: float = 1.5,
+    c1: float = 0.01**2,
+    c2: float = 0.03**2,
+) -> torch.Tensor:
+    """The SSIM map of this rank's horizontal strip of an image whose row
+    strips are spread over ``group`` (one strip a rank, in rank order): the
+    11×11 windows near a strip's edge read 5 rows of the neighbours, sent by
+    :func:`_halo_exchange`.  Its rows equal the full image's map rows."""
+    if n_strips == 1:
+        return _ssim_map(pred, target, window_size, sigma, c1, c2)
+    halo = window_size // 2
+    p = _halo_exchange(pred, group, n_strips, halo)
+    t = _halo_exchange(target, group, n_strips, halo)
+    return _ssim_map(p, t, window_size, sigma, c1, c2)[halo:-halo]
+
+
+def ssim_strip(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    group,
+    n_strips: int,
+    window_size: int = 11,
+    sigma: float = 1.5,
+    c1: float = 0.01**2,
+    c2: float = 0.03**2,
+) -> torch.Tensor:
+    """Per-strip mean SSIM under row-strip sharding (every rank of ``group``
+    calls it with its strip).  The mean of the per-strip means over equal
+    strips is the full image's mean SSIM (to float rounding); with
+    ``n_strips == 1`` this is :func:`ssim`."""
+    return torch.mean(ssim_strip_map(pred, target, group, n_strips, window_size, sigma, c1, c2))
 
 
 def render_loss(

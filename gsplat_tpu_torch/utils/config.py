@@ -2,9 +2,8 @@
 
 The port's own copy of ``gsplat_tpu.utils.config.RenderConfig``: same fields,
 same defaults, same validation (``tests/test_torch_config_models.py`` compares
-the two dataclasses field by field).  Fields that only later slices of the
-port read (wireframe, depth test, sharding strides, strip budgets) are kept so
-a config travels unchanged between the two packages.
+the two dataclasses field by field), so a config travels unchanged between
+the two packages.
 """
 
 from __future__ import annotations
@@ -70,20 +69,21 @@ class RenderConfig:
     # agree under quantization.
     payload_dtype: str = "float32"
 
-    # Wireframe debug mode (later slice of the port).
+    # Wireframe debug mode: an opaque band on each splat's quad edge.
     wireframe: bool = False
 
     # Wireframe line half-width in pixels.
     line_px: float = 1.0
 
-    # Per-strip pair-budget headroom for the sharded renderer (later slice).
+    # Per-strip pair-budget headroom for the sharded renderer.
     strip_budget_factor: float = 2.0
 
-    # Strip-compacted payload exchange for the sharded renderer (0 = off;
-    # later slice).
+    # Strip-compacted payload exchange for the sharded renderer (0 = off):
+    # each rank ships per strip at most factor·N_local splat columns.
     strip_exchange_factor: float = 0.0
 
-    # Sharded-render tile-row assignment (later slice).
+    # Sharded-render tile assignment: "cyclic" (a 2-D interleave of tile rows
+    # and columns) or "contiguous" strips of tile rows.
     row_assignment: str = "cyclic"
 
     # INTERNAL (set by the sharded renderer): global tile row of local tile
@@ -91,7 +91,7 @@ class RenderConfig:
     row_stride: int = 1
     col_stride: int = 1
 
-    # Depth-test compositing into a host scene (later slice).  Needs the
+    # Depth-test compositing into a host scene.  Needs the
     # per-splat view-z payload row, which the 8-row packed payload has no
     # slot for.
     depth_test: bool = False

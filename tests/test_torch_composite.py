@@ -108,8 +108,15 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         tcomp.composite_splats(*args, dataclasses.replace(cfg, depth_test=True), bg_depth=torch.zeros((64, 64)))
     with pytest.raises(ValueError, match="depth_test"):
         tcomp.composite_splats(*args, cfg, bg_depth=torch.zeros((64, 64)))
-    with pytest.raises(NotImplementedError, match="strided"):
-        tcomp.composite_splats(*args, dataclasses.replace(cfg, row_stride=2))
+    # the strided mapping: offsets are tiles >= 0, and the depth test takes
+    # only the full-frame mapping (its scene depth is the local image's)
+    with pytest.raises(ValueError, match="offsets"):
+        tcomp.composite_splats(*args, dataclasses.replace(cfg, row_stride=2), offsets=(-1, 0))
+    with pytest.raises(ValueError, match="full-frame"):
+        tcomp.composite_splats(*args, dataclasses.replace(cfg, depth_test=True, col_stride=2),
+                               bg_depth=torch.zeros((64, 64)))
+    img, used = tcomp.composite_splats(*args, dataclasses.replace(cfg, row_stride=2), offsets=(1, 3))
+    assert float(img.abs().max()) == 0.0 and int(used.max()) == 0
     with pytest.raises(TypeError):  # packed config wants the (8, N) int32 matrix
         tcomp.composite_splats(*args, dataclasses.replace(cfg, payload_dtype="packed"))
     with pytest.raises(TypeError):

@@ -230,3 +230,55 @@ def test_probes_match_plain(card):
         assert abs(got - want) <= 1e-9 * float(probes.gather_probe_plain(m.abs(), idx, access)), access
     assert torch.equal(probes.gather_probe(torch.zeros_like(mat), idx, "column_write"),
                        probes.gather_probe_plain(torch.zeros_like(mat), idx, "column_write"))
+
+
+# (strides, offsets in tiles): the cyclic grids of the sharded renderer and a
+# contiguous strip at a row offset
+STRIDED_CASES = [((2, 2), (0, 0)), ((2, 2), (1, 1)), ((1, 4), (0, 3)), ((4, 1), (3, 0)), ((1, 1), (17, 0))]
+
+
+@pytest.mark.parametrize("strides,offsets", STRIDED_CASES,
+                         ids=["2x2-0-0", "2x2-1-1", "1x4-0-3", "4x1-3-0", "rows-17"])
+def test_strided_tile_mapping_matches_plain(card, strides, offsets):
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.ops.projection import project_splats
+    from gsplat_tpu_torch.ops.rasterize_ref import quantize_payload, sanitize_projected
+    from gsplat_tpu_torch.ops.rasterize_tiles import sort_by_depth
+
+    g = torch.Generator(device=card).manual_seed(6)
+    splats = gt.random_splats(g, 20000, extent=0.8, scale_range=(0.01, 0.05), sh_scale=0.2, device=card)
+    width, height = 320, 704  # 10 x 22 tiles
+    cam = gt.make_camera([0.2, 0.4, 3.0], [0, 0, 0], width, height, device=card)
+    dy, dx = strides
+    if strides == (1, 1):
+        strip_h, strip_w = 4 * 32, width  # tile rows 17..20
+    else:
+        strip_h = -(-height // (dy * 32)) * 32
+        strip_w = -(-width // (dx * 32)) * 32
+    cfg = gt.RenderConfig(payload_dtype="packed", transmittance_eps=1e-3, pairs_per_splat=8.0,
+                          row_stride=dy, col_stride=dx)
+    p = sort_by_depth(quantize_payload(sanitize_projected(project_splats(splats, cam, 3)), cfg))
+    b = binning.bin_splats(p, strip_w, strip_h, cfg, row_offset=offsets[0], col_offset=offsets[1],
+                           with_tiles=False, with_grad_map=True)
+    nty, ntx = binning.tile_grid(strip_w, strip_h, 32, 32)
+    fwd = (kcomp.pack_payload(p.fields), b.pair_splat, b.tile_base, b.tile_phi, b.tile_span,
+           nty, ntx, strip_h, strip_w, cfg)
+    before = (kcomp.launches_strided, kcomp.launches_bwd_strided)
+    img, used = kcomp.composite_splats(*fwd, offsets=offsets)
+    img_p, used_p = kcomp.composite_splats_plain(*fwd, offsets=offsets)
+    assert torch.equal(img, img_p) and torch.equal(used, used_p)
+    img_c, used_c, tchk = kcomp.composite_splats(*fwd, checkpoint=True, offsets=offsets)
+    assert torch.equal(img_c, img) and torch.equal(used_c, used)
+    d_out = torch.randn((strip_h, strip_w, 4), generator=g, device=card)
+    g_pad = binning.grad_pad_size(b.dest_of_exp.shape[0], nty * ntx, cfg.chunk)
+    args = fwd[:5] + (used_c, b.grad_base, d_out, tchk, g_pad) + fwd[5:]
+    a = _nine_rows(kcomp.composite_bwd(*args, offsets=offsets), True)
+    w = _nine_rows(kcomp.composite_bwd_plain(*args, offsets=offsets), True)
+    assert (kcomp.launches_strided, kcomp.launches_bwd_strided) == (before[0] + 2, before[1] + 1)
+    for r in range(9):
+        scale = float(w[r].abs().max())
+        if r in (6, 7):  # bf16 halves: one step of an 8-bit mantissa
+            assert bool(((a[r] - w[r]).abs() <= w[r].abs() * 2.0 ** -7 + 1e-5 * scale).all()), r
+        else:
+            assert float((a[r] - w[r]).abs().max()) <= 1e-5 * scale, r
+    assert float(img[..., 3].max()) > 0.5 and float(w.abs().max()) > 0.0

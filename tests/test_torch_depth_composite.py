@@ -160,5 +160,5 @@ def test_scene_depth_limits_and_what_raises():
     with pytest.raises(ValueError, match="packed"):  # as in JAX: the config refuses the pair
         gt.render(ts, tc, dataclasses.replace(cfg, payload_dtype="packed"),
                   background_depth=torch.zeros((64, 96)))
-    with pytest.raises(NotImplementedError, match="strided"):
+    with pytest.raises(ValueError, match="stride"):  # strides map the sharded renderer's strips
         gt.render(ts, tc, dataclasses.replace(cfg, row_stride=2), background_depth=torch.zeros((64, 96)))

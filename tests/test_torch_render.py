@@ -140,10 +140,12 @@ def test_background_and_composite_over():
 def test_later_slices_raise_not_implemented():
     js, jc = jax_scene(n=20)
     ts, tc, tcfg = splats_to_torch(js), camera_to_torch(jc), to_config(EXACT)
-    # the strided tile mapping of the sharded renderer is the one mode still to come
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the strided tile mapping belongs to the sharded renderer's strips
+    # (render_strip, render_sharded: tests/test_torch_sharded_render.py); a
+    # full frame refuses it
+    with pytest.raises(ValueError, match="stride"):
         gt.render(ts, tc, dataclasses.replace(tcfg, row_stride=2))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="stride"):
         gt.render(ts, tc, dataclasses.replace(tcfg, col_stride=3), background_depth=torch.ones(64, 64))
     # the host-scene and wireframe modes render now (tests/test_torch_depth_composite.py,
     # tests/test_torch_wireframe.py); the depth test without a depth still raises, as in JAX
