@@ -10,7 +10,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
   build      compiles csrc/*.cu with nvcc (one process per source, in
              parallel) and loads the libraries.
   checks     every kernel against its plain PyTorch version on the card at
-             small and ragged shapes (scan: bit-equal; compositor: image
+             small and ragged shapes (scan: bit-equal at both tile shapes,
+             and in 200 back-to-back calls of alternating kind and length
+             with its scratch poisoned by random words; compositor: image
              max|diff| < 1e-5 and equal stop counters; its checkpoint variant:
              the same image and counters bit for bit; backward compositor:
              every gradient-space row within 1e-5 of the row's max, the packed
@@ -27,7 +29,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              of the sharded renderer on the grids (2, 2) at (0, 0) and
              (1, 1), (1, 4) at (0, 3), (4, 1) at (3, 0) and a contiguous strip
              at tile row 17: the forward and its checkpoint variant bit-equal,
-             the backward rows as above).  Every time below is taken by
+             the backward rows as above).  Every backward call, here and in
+             the kernels phase, also runs twice (bit-equal) and through its
+             audit instance (no pixel with alpha != 0 in a warp the reach
+             test skipped).  Every time below is taken by
              utils/profiling.py.
   reference  a small scene rendered through the main path against the
              plain tiled renderer and the O(N*H*W) oracle, and its gradient
@@ -92,8 +97,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
              inputs) of its path: error against the plain version, its time,
              the plain version's, a library call's where one exists, and the
              least time the card could take (bound, from utils/sol.py: the
-             data sheet's rates; bound_measured_ms at this run's rates); the
-             strided rows at rank 0's inputs on the sharded path.
+             data sheet's rates; bound_measured_ms at this run's rates; the
+             compositors priced on the pixel updates with alpha != 0, the
+             all-pixel bound beside); the scans' device operations a call
+             from a profiler trace; the strided rows at rank 0's inputs on the sharded path.
+
+python3 chip_smoke.py --frame-digest prints only the SHA-256 of the main
+path's first frame and of its forward kernel's image and stop counters, to
+hold the kernels of two trees to each other.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -321,13 +332,40 @@ def gspace_rows(gspace, packed):
     return torch.cat([gspace[0:6].view(torch.float32), cg, cb, gspace[7:8].view(torch.float32)], dim=0)
 
 
+# Backward calls audited in this process: both runs bit-equal, and (hard
+# cutoff) the audit instance found no skipped pixel with α != 0.
+AUDITED = {"two_runs": 0, "audit_instance": 0}
+
+
+def audit_backward(args, got, label, bgd=None, offsets=(0, 0)):
+    """The backward's reach test on these inputs: a second run bit-equal to
+    the first, and (hard cutoff) the audit instance, which evaluates α in
+    every warp the test skipped, finding no pixel with α != 0 and writing the
+    same gradient space bit for bit.  Returns the skipped live pixels (None
+    in soft mode, which has no reach test)."""
+    again = kcomp.composite_bwd(*args, bg_depth=bgd, offsets=offsets)
+    if not torch.equal(got, again):
+        fail(f"composite_bwd {label}: two runs on the same input differ")
+    AUDITED["two_runs"] += 1
+    if args[-1].soft_cutoff:
+        return None
+    audited, skipped = kcomp.composite_bwd_audit(*args, bg_depth=bgd, offsets=offsets)
+    if skipped != 0 or not torch.equal(audited, got):
+        fail(f"composite_bwd {label}: the reach test skipped {skipped} pixels with alpha != 0 "
+             f"(audit output bit-equal: {bool(torch.equal(audited, got))})")
+    AUDITED["audit_instance"] += 1
+    return skipped
+
+
 def compare_backward(fwd, b, used, tchk, d_out, g_pad, label, bgd=None, offsets=(0, 0)):
-    """composite_bwd against composite_bwd_plain, row by row."""
+    """composite_bwd against composite_bwd_plain, row by row, and its reach
+    test audited (audit_backward)."""
     cfg = fwd[-1]
     packed = cfg.payload_dtype == "packed"
     args = fwd[:5] + (used, b.grad_base, d_out, tchk, g_pad) + fwd[5:]
     got = kcomp.composite_bwd(*args, bg_depth=bgd, offsets=offsets)
     torch.cuda.synchronize()
+    audit_backward(args, got, label, bgd, offsets)
     want = kcomp.composite_bwd_plain(*args, bg_depth=bgd, offsets=offsets)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -537,17 +575,75 @@ def check_probes():
     return out
 
 
+# The scan stress of the checks: back-to-back calls on one stream, kinds and
+# lengths alternating, the scratch poisoned with random words before and
+# between them.
+SCAN_STRESS_CALLS = 200
+SCAN_STRESS_LENGTHS = (1, 4095, 4096, 4097, 1 << 20, 2_359_296, (1 << 24) + 3)
+
+
+def scan_input(kind, n, g):
+    if kind == "add":
+        return torch.randint(0, 40, (n,), generator=g, device=DEV, dtype=torch.int32)
+    return torch.randint(-(2**31), 2**31 - 1, (n,), generator=g, device=DEV, dtype=torch.int64).to(torch.int32)
+
+
+def poison_scan_scratch(g):
+    """Random 64-bit words over every scratch tensor the scan module holds,
+    enqueued on the current stream."""
+    for buf in kscan._scratch.values():
+        buf.copy_(torch.randint(-(2**63), 2**63 - 1, buf.shape, generator=g, device=DEV, dtype=torch.int64))
+
+
+def check_scan_stress(g):
+    """SCAN_STRESS_CALLS calls alternating kind and length with no host wait
+    between them, each bit-equal to its plain version; the scratch poisoned
+    before the first and every 25 calls."""
+    inputs = {(k, n): scan_input(k, n, g) for k in kscan.KINDS for n in SCAN_STRESS_LENGTHS}
+    want = {key: kscan.scan_i32_plain(x, key[0]) for key, x in inputs.items()}
+    kscan.scan_i32(inputs[("add", max(SCAN_STRESS_LENGTHS))], "add")  # the scratch at its largest
+    calls = []
+    for i in range(SCAN_STRESS_CALLS):
+        if i % 25 == 0:
+            poison_scan_scratch(g)
+        key = (kscan.KINDS[i % 2], SCAN_STRESS_LENGTHS[(i // 2) % len(SCAN_STRESS_LENGTHS)])
+        calls.append((key, kscan.scan_i32(inputs[key], key[0])))
+    torch.cuda.synchronize()
+    bad = [(i, key) for i, (key, got) in enumerate(calls) if not torch.equal(got, want[key])]
+    if bad:
+        fail(f"scan stress: {len(bad)} of {SCAN_STRESS_CALLS} calls differ from the plain version, first {bad[:3]}")
+    return len(calls)
+
+
+def check_scan_refuses_capture():
+    """Under CUDA graph capture the scan raises and launches nothing (a
+    replay would reuse the launch's epoch)."""
+    x = torch.arange(10_000, dtype=torch.int32, device=DEV)
+    before = kscan.launches
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            kscan.scan_i32(x, "add")
+    except RuntimeError as e:
+        if "CUDA graph" not in str(e):
+            raise
+    else:
+        fail("scan_i32 was captured in a CUDA graph")
+    if kscan.launches != before:
+        fail("scan_i32 counted a launch under capture")
+    if not torch.equal(kscan.scan_i32(x, "add"), kscan.scan_i32_plain(x, "add")):
+        fail("scan_i32 differs from its plain version after a refused capture")
+
+
 def phase_checks():
     """Small and ragged shapes: every kernel against its plain version."""
     g = torch.Generator(device=DEV)
     g.manual_seed(1)
     scan_cases = 0
-    for n in (0, 1, 1023, 4096, 4097, 1_000_000, 3_000_001):
+    # lengths around one tile of the kernel (8192) and past many
+    for n in (0, 1, 1023, 4096, 4097, 8192, 8193, 1_000_000, 3_000_001):
         for kind in kscan.KINDS:
-            if kind == "add":
-                x = torch.randint(0, 40, (n,), generator=g, device=DEV, dtype=torch.int32)
-            else:
-                x = torch.randint(-(2**31), 2**31 - 1, (n,), generator=g, device=DEV, dtype=torch.int64).to(torch.int32)
+            x = scan_input(kind, n, g)
             got = kscan.scan_i32(x, kind)
             torch.cuda.synchronize()
             want = kscan.scan_i32_plain(x, kind)
@@ -558,6 +654,8 @@ def phase_checks():
                 if not torch.equal(kscan.scan_i32(x[1:], kind), kscan.scan_i32_plain(x[1:], kind)):
                     fail(f"scan_i32[{kind}] differs on a misaligned view at length {n - 1}")
             scan_cases += 1
+    stress_calls = check_scan_stress(g)
+    check_scan_refuses_capture()
 
     splats = bench_scene(100_000, seed=2)
     worst = 0.0
@@ -702,12 +800,14 @@ def phase_checks():
         bwd["cases"] += 1
     bwd["bwd_worst_rel_err"] = max(bwd["bwd_worst_rel_err"], strided_bwd)
     probe = check_probes()
-    emit("checks", scan_cases=scan_cases, scan="bit-equal", compositor_cases=comp_cases,
+    emit("checks", scan_cases=scan_cases, scan="bit-equal", scan_stress_calls=stress_calls,
+         scan_stress="bit-equal, scratch poisoned every 25 calls", compositor_cases=comp_cases,
          depth_test_cases=depth_cases, wireframe_cases=wire_cases, strided_cases=strided_cases,
          strided_forward="bit-equal (and its checkpoint variant)", strided_bwd_worst_row_rel_err=strided_bwd,
          probes=probe,
          compositor_max_abs_err=worst, tolerance=IMAGE_TOL, tiles_stopped_early=stops, used="equal",
          backward_cases=bwd["cases"], checkpoint_variant="image and used bit-equal",
+         backward_audited=dict(AUDITED, skipped_live_pixels=0),
          checkpoint_max_abs_err=bwd["checkpoint_max_abs_err"],
          composite_bwd_worst_row_rel_err=bwd["bwd_worst_rel_err"], composite_bwd_row_tolerance=GRAD_ROW_TOL,
          segsum_worst_row_rel_err=bwd["segsum_worst_rel_err"], segsum_row_tolerance=SEGSUM_TOL,
@@ -855,6 +955,26 @@ def phase_main_path(n_splats, width, height, frames):
          median_frame_ms=statistics.median(times), min_frame_ms=min(times),
          peak_memory_bytes=peak, covered_share=coverage, launches=counts)
     return splats, cams, cfg, counts, statistics.median(times)
+
+
+def phase_frame_digest(n_splats, width, height):
+    """--frame-digest: the main path's scene, settings and first camera
+    (phase_main_path's), rendered once through render() and once through the
+    forward kernel at its own inputs; SHA-256 of the bytes."""
+    import hashlib
+
+    splats = bench_scene(n_splats, seed=0)
+    cams = orbit_cameras(width, height, 5)
+    cfg = gt.tune_pair_budget(splats, cams, gt.RenderConfig(payload_dtype="packed", transmittance_eps=1e-3),
+                              headroom=1.02)
+    image = gt.render(splats, cams[0], cfg, backend="auto")
+    k_image, used = kcomp.composite_splats(*compositor_inputs(splats, cams[0], cfg)[0])
+
+    def digest(t):
+        return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+    emit("frame_digest", render_image_sha256=digest(image), kernel_image_sha256=digest(k_image),
+         kernel_used_sha256=digest(used), used_sum=int(used.sum()))
 
 
 def phase_stages(splats, cam, cfg, reps=7):
@@ -1166,8 +1286,7 @@ def phase_calibrate(splats, cam, cfg, main_ms, train_cfg, step_ms, host_cfg, hos
     a training step and a host-scene frame at those rates."""
     n = splats.count
     args, b = compositor_inputs(splats, cam, cfg)
-    used = kcomp.composite_splats(*args)[1]
-    walked = pairs_walked(used, b)
+    pc = pair_counts(args, kcomp.composite_splats(*args)[1])
     zero_counters()
     res = sol_calibrate.calibrate(pair_splat=b.pair_splat)
     res["gather_random"] = sol_calibrate.gather_rates(
@@ -1181,20 +1300,16 @@ def phase_calibrate(splats, cam, cfg, main_ms, train_cfg, step_ms, host_cfg, hos
     DEVICE.clear()
     DEVICE.update(device)
     hargs, hb = compositor_inputs(splats, cam, host_cfg)
-    host_walked = pairs_walked(kcomp.composite_splats(*hargs, bg_depth=host_bgd)[1], hb)
-    floors = {
-        "serving_frame": (sol.report(n, cam.width, cam.height, cfg.pair_budget(n), main_ms, fwd_only=True,
-                                     device=device, pairs_walked=walked),
-                          sol.speed_of_light(n, cam.width, cam.height, cfg.pair_budget(n), True, device, walked)),
-        "training_step": (sol.report(n, cam.width, cam.height, train_cfg.pair_budget(n), step_ms, fwd_only=False,
-                                     device=device, pairs_walked=walked),
-                          sol.speed_of_light(n, cam.width, cam.height, train_cfg.pair_budget(n), False, device,
-                                             walked)),
-        "host_scene_frame": (sol.report(n, cam.width, cam.height, host_cfg.pair_budget(n), host_ms, fwd_only=True,
-                                        device=device, pairs_walked=host_walked, mode="depth"),
-                             sol.speed_of_light(n, cam.width, cam.height, host_cfg.pair_budget(n), True, device,
-                                                host_walked, "depth")),
-    }
+    hpc = pair_counts(hargs, kcomp.composite_splats(*hargs, bg_depth=host_bgd)[1], host_bgd)
+    floors = {}
+    for name, budget, ms, fwd_only, c, mode in (
+            ("serving_frame", cfg.pair_budget(n), main_ms, True, pc, "beauty"),
+            ("training_step", train_cfg.pair_budget(n), step_ms, False, pc, "beauty"),
+            ("host_scene_frame", host_cfg.pair_budget(n), host_ms, True, hpc, "depth")):
+        floors[name] = (sol.report(n, cam.width, cam.height, budget, ms, fwd_only, device, c["pairs"], mode,
+                                   c["live_pixel_updates"]),
+                        sol.speed_of_light(n, cam.width, cam.height, budget, fwd_only, device, c["pairs"], mode,
+                                           c["live_pixel_updates"]))
     emit("calibrate", card=res["card"], sm_clock_hz=res["alu"]["sm_clock_hz"],
          f32_issue_rate=device["f32_issue_rate"], mul_add_rate=device["mul_add_rate"],
          expf_rate=device["expf_rate"], expf_sass_slots=res.get("expf_sass_slots"),
@@ -1204,6 +1319,32 @@ def phase_calibrate(splats, cam, cfg, main_ms, train_cfg, step_ms, host_cfg, hos
          sol={k: dict(v[0], achieved_ms=v[0]["sol_ms"] / v[0]["sol_fraction"],
                       stages={s_: ms_ for s_, (ms_, _u) in v[1]["stages"].items()}) for k, v in floors.items()})
     return res, by_probe
+
+
+def device_events(path):
+    """(name, microseconds) of every device-side event (kernel, copy, fill)
+    of a Chrome trace written by stop_trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["dur"])) for e in events
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def traced_calls(fn, calls):
+    """fn() `calls` times under torch.profiler: the device operations one
+    call enqueues and their device microseconds a call, from the trace."""
+    fn()
+    torch.cuda.synchronize()
+    start_trace(TRACE_DIR)
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    events = device_events(stop_trace())
+    if not events:
+        fail("the profiler trace holds no device events")
+    return {"device_ops_per_call": len(events) / calls,
+            "device_us_per_call": sum(d for _, d in events) / calls,
+            "device_op_names": sorted({n[:60] for n, _ in events})}
 
 
 def phase_profile(label, units):
@@ -1225,14 +1366,10 @@ def phase_profile(label, units):
     wall_ms = (t1 - t0) * 1e3
     # Device-side events only (kernels, copies, fills): an operator's event
     # repeats the time of the kernels it launched.
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
     kernels = {}
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
-            continue
-        tot, cnt = kernels.get(e["name"], (0.0, 0))
-        kernels[e["name"]] = (tot + float(e["dur"]), cnt + 1)
+    for name, dur in device_events(path):
+        tot, cnt = kernels.get(name, (0.0, 0))
+        kernels[name] = (tot + dur, cnt + 1)
     total = len(units) + 1  # the traced window holds one extra unit
     top = sorted(((tot, name, cnt) for name, (tot, cnt) in kernels.items()), reverse=True)
     busy_ms = sum(t for t, _, _ in top) / 1e3 / total
@@ -1245,19 +1382,24 @@ def phase_profile(label, units):
               for tot, name, cnt in top[:14]])
 
 
-def compositor_bounds(walked, nbytes, kind, mode):
-    """A compositor row's bounds from utils/sol.py: issue slots at the data
-    sheet's rate (bound_ms), at this run's measured rates
-    (bound_measured_ms), and the earlier slices' flop bound."""
+def compositor_bounds(counts, nbytes, kind, mode):
+    """A compositor row's bounds from utils/sol.py, priced on the pixel
+    updates these inputs need (counts["live_pixel_updates"], α != 0; every
+    pixel in soft mode): issue slots at the data sheet's rate (bound_ms), at
+    this run's measured rates (bound_measured_ms), the earlier slices' flop
+    bound; beside them the same at every pixel of every walked pair
+    (bound_all_pixels_ms, the earlier rule)."""
     if kind == "fwd":
         slots, n_expf, flops = sol.FWD_SLOTS[mode], sol.FWD_EXPF[mode], sol.FWD_FLOPS[mode]
     else:
         slots, n_expf, flops = sol.BWD_SLOTS[mode], 1, sol.BWD_FLOPS[mode]
-    b = sol.compositor_bound(walked * 1024, nbytes, slots, n_expf, flops, DEVICE)
+    b = sol.compositor_bound(counts["live_pixel_updates"], nbytes, slots, n_expf, flops, DEVICE)
+    a = sol.compositor_bound(counts["pairs"] * 1024, nbytes, slots, n_expf, flops, DEVICE)
     return {"bound_ms": b["issue_datasheet_ms"], "bound_by": b["issue_datasheet_bound_by"],
             "bound_measured_ms": b["issue_ms"], "bound_flops_ms": b["flops_datasheet_ms"],
             "bound_bytes_ms": b["bytes_datasheet_ms"], "issue_slots": b["issue_slots"],
-            "bound_rule": f"{slots} slots + {n_expf} expf a pixel update (utils/sol.py)"}
+            "bound_all_pixels_ms": a["issue_datasheet_ms"], "bound_all_pixels_measured_ms": a["issue_ms"],
+            "bound_rule": f"{slots} slots + {n_expf} expf a live pixel update (utils/sol.py)"}
 
 
 def bytes_bounds(nbytes):
@@ -1265,12 +1407,23 @@ def bytes_bounds(nbytes):
     return {"bound_ms": b["datasheet_ms"], "bound_by": "bytes", "bound_measured_ms": b["measured_ms"]}
 
 
-def compositor_row(name, source, replaces, launches, err, ms, plain_ms, walked, nbytes, kind, mode, **extra):
+def pair_counts(fwd, used, bgd=None, offsets=(0, 0)):
+    """kcomp.walked_pair_counts of a compositor call's inputs and stop
+    counters."""
+    pay, pair_splat, tile_base, tile_phi, _, nty, ntx, _, _, cfg = fwd
+    return kcomp.walked_pair_counts(pay, pair_splat, tile_base, tile_phi, used, nty, ntx, cfg, bgd, offsets)
+
+
+def compositor_row(name, source, replaces, launches, err, ms, plain_ms, counts, nbytes, kind, mode, **extra):
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    row.update(compositor_bounds(walked, nbytes, kind, mode))
+    row.update(compositor_bounds(counts, nbytes, kind, mode))
     row["library_ms"] = None
-    row.update(pairs_walked=walked, bytes=nbytes, **extra)
+    pairs = max(counts["pairs"], 1)
+    row.update(pairs_walked=counts["pairs"], live_pixel_updates=counts["live_pixel_updates"],
+               live_share=counts["live_pixel_updates"] / (pairs * 1024),
+               live_warps_per_pair=counts["live_warps"] / pairs, reach_warps_per_pair=counts["reach_warps"] / pairs,
+               bytes=nbytes, **extra)
     return row
 
 
@@ -1292,14 +1445,14 @@ def phase_train_kernels(splats, cam, cfg, counts):
     ms_chk = cuda_time_ms(lambda: kcomp.composite_splats(*fwd, checkpoint=True), 10, warmup=2)[0]
     ms_nochk = cuda_time_ms(lambda: kcomp.composite_splats(*fwd), 10, warmup=2)[0]
     plain_chk_ms, _ = cuda_time_ms(lambda: kcomp.composite_splats_plain(*fwd, checkpoint=True))
-    walked = pairs_walked(used, b)
+    pc = pair_counts(fwd, used)
     chunks_walked = int(((used + chunk - 1) // chunk).sum())
     in_bytes = (payload.numel() + pair_splat.numel() + 3 * b.tile_base.numel()) * 4
     img_bytes = cam.height * cam.width * 16
     chk_bytes = chunks_walked * 1024 * 4
     rows.append(compositor_row(
         "composite_fwd_checkpoint", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:852",
-        counts["composite_fwd_checkpoint"], e_chk, ms_chk, plain_chk_ms, walked,
+        counts["composite_fwd_checkpoint"], e_chk, ms_chk, plain_chk_ms, pc,
         in_bytes + img_bytes + used.numel() * 4 + chk_bytes, "fwd", "beauty",
         ms_without_checkpoints=ms_nochk, chunks_walked=chunks_walked, checkpoint_bytes_written=chk_bytes,
         checkpoint_bytes_allocated=tchk.numel() * 4))
@@ -1312,9 +1465,10 @@ def phase_train_kernels(splats, cam, cfg, counts):
     nbytes = in_bytes + 2 * used.numel() * 4 + img_bytes + chk_bytes + gspace.numel() * 4
     rows.append(compositor_row(
         "composite_bwd", BWD_SRC, "gsplat_tpu/ops/pallas/composite.py:853", counts["composite_bwd"],
-        e_bwd_abs, ms_bwd, plain_bwd_ms, walked, nbytes, "bwd", "beauty",
+        e_bwd_abs, ms_bwd, plain_bwd_ms, pc, nbytes, "bwd", "beauty",
         max_abs_err_is="float32 rows; the two bf16 halves are held to one bf16 step",
-        worst_row_rel_err=e_bwd, row_tolerance=GRAD_ROW_TOL, grad_space_columns=g_pad))
+        worst_row_rel_err=e_bwd, row_tolerance=GRAD_ROW_TOL, grad_space_columns=g_pad,
+        audit="0 skipped live pixels, audit output and a second run bit-equal"))
 
     # segment sum
     e_seg, e_seg_abs = compare_segsum(gspace, b, packed, "train-path frame")
@@ -1351,13 +1505,13 @@ def phase_host_kernels(splats, cam, dcfg, bgd, wcfg, host_counts):
     err, used = compare_compositor(args, "host-scene frame", bgd=bgd)
     ms = cuda_time_ms(lambda: kcomp.composite_splats(*args, bg_depth=bgd), 10, warmup=2)[0]
     plain_ms, _ = cuda_time_ms(lambda: kcomp.composite_splats_plain(*args, bg_depth=bgd))
-    walked = pairs_walked(used, b)
+    pc = pair_counts(args, used, bgd)
     in_bytes = (args[0].numel() + args[1].numel() + 3 * b.tile_base.numel()) * 4
     img_bytes = cam.height * cam.width * 16
     depth_bytes = cam.height * cam.width * 4
     rows.append(compositor_row(
         "composite_fwd_depth", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:271",
-        host_counts["frames"]["launches"]["composite_fwd_depth"], err, ms, plain_ms, walked,
+        host_counts["frames"]["launches"]["composite_fwd_depth"], err, ms, plain_ms, pc,
         in_bytes + depth_bytes + img_bytes + used.numel() * 4, "fwd", "depth",
         variant="depth test (payload row 10 = view-z against the scene depth)",
         pairs_binned=int(b.tile_count.sum()), tiles_stopped_early=int((used < b.tile_span).sum())))
@@ -1369,26 +1523,27 @@ def phase_host_kernels(splats, cam, dcfg, bgd, wcfg, host_counts):
     bargs = fwd[:5] + (used_c, bb.grad_base, d_out, tchk, g_pad) + fwd[5:]
     ms_bwd = cuda_time_ms(lambda: kcomp.composite_bwd(*bargs, bg_depth=bgd), 10, warmup=2)[0]
     plain_bwd_ms, _ = cuda_time_ms(lambda: kcomp.composite_bwd_plain(*bargs, bg_depth=bgd))
-    walked_b = pairs_walked(used_c, bb)
+    pc_b = pair_counts(fwd, used_c, bgd)
     chk_bytes = int(((used_c + dcfg.chunk - 1) // dcfg.chunk).sum()) * 1024 * 4
     nbytes = (fwd[0].numel() + fwd[1].numel() + 3 * bb.tile_base.numel() + 2 * used_c.numel()) * 4 \
         + depth_bytes + img_bytes + chk_bytes + gspace.numel() * 4
     rows.append(compositor_row(
         "composite_bwd_depth", BWD_SRC, "gsplat_tpu/ops/pallas/composite.py:853",
-        host_counts["gradient"]["launches"]["composite_bwd_depth"], e_bwd_abs, ms_bwd, plain_bwd_ms, walked_b,
-        nbytes, "bwd", "depth", worst_row_rel_err=e_bwd, row_tolerance=GRAD_ROW_TOL))
+        host_counts["gradient"]["launches"]["composite_bwd_depth"], e_bwd_abs, ms_bwd, plain_bwd_ms, pc_b,
+        nbytes, "bwd", "depth", worst_row_rel_err=e_bwd, row_tolerance=GRAD_ROW_TOL,
+        audit="0 skipped live pixels, audit output and a second run bit-equal"))
 
     # the wireframe band test, at the wireframe pass's own inputs
     wargs, wb = wire._wireframe_inputs(splats, cam, wcfg, LINE_PX)
     err, used = compare_compositor(wargs, "wireframe frame")
     ms = cuda_time_ms(lambda: kcomp.composite_splats(*wargs), 10, warmup=2)[0]
     plain_ms, _ = cuda_time_ms(lambda: kcomp.composite_splats_plain(*wargs))
-    walked = pairs_walked(used, wb)
+    pc = pair_counts(wargs, used)
     nbytes = (wargs[0].numel() + wargs[1].numel() + 3 * wb.tile_base.numel() + used.numel()) * 4 + img_bytes
     rows.append(compositor_row(
         "composite_fwd_wire", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:245",
         host_counts["wireframe"]["launches"]["composite_fwd_wire"]
-        + host_counts["wire_over"]["launches"]["composite_fwd_wire"], err, ms, plain_ms, walked, nbytes,
+        + host_counts["wire_over"]["launches"]["composite_fwd_wire"], err, ms, plain_ms, pc, nbytes,
         "fwd", "wire", variant=f"wireframe band, line_px {LINE_PX}", pairs_binned=int(wb.tile_count.sum()),
         tiles_stopped_early=int((used < wb.tile_span).sum())))
     return rows
@@ -1474,12 +1629,23 @@ def phase_kernels(splats, cam, cfg, counts, train_counts):
         ms = cuda_time_ms(lambda: kscan.scan_i32(nxt(), kind), 50, warmup=2)[0]
         plain_ms = cuda_time_ms(lambda: kscan.scan_i32_plain(nxt(), kind), 50, warmup=2)[0]
         library_ms = cuda_time_ms(lambda: lib(nxt()), 50, warmup=2)[0]
+        # One call under the profiler: what it enqueues on the device, and
+        # the device time alone (ms above is a caller's: host launch
+        # included, back to back); the same for the library call.
+        traced = traced_calls(lambda: kscan.scan_i32(nxt(), kind), 20)
+        lib_traced = traced_calls(lambda: lib(nxt()), 20)
         row = {"name": f"scan_i32_{kind}", "route": "cuda", "source": "gsplat_tpu_torch/csrc/scan.cu",
                "replaces": replaces, "launches": counts[f"scan_i32_{kind}"],
                "launches_train_path": train_counts[f"scan_i32_{kind}"], "length": length,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         row.update(bytes_bounds(8.0 * length))
         row["library_ms"] = library_ms
+        row.update(device_ops_per_call=traced["device_ops_per_call"],
+                   device_us_per_call=traced["device_us_per_call"], device_ops=traced["device_op_names"],
+                   library_device_ops_per_call=lib_traced["device_ops_per_call"],
+                   library_device_us_per_call=lib_traced["device_us_per_call"])
+        if traced["device_ops_per_call"] != 1:
+            fail(f"scan_i32[{kind}]: one call enqueued {traced['device_ops_per_call']} device operations, not 1")
         rows.append(row)
         del xs
 
@@ -1489,13 +1655,13 @@ def phase_kernels(splats, cam, cfg, counts, train_counts):
     plain_ms, _ = cuda_time_ms(lambda: kcomp.composite_splats_plain(*args))
     # Work this frame's data needs: the live pair positions each tile walked
     # before it stopped, times 1024 pixels, and every input and output once.
-    walked = pairs_walked(used, b)
+    pc = pair_counts(args, used)
     payload, pair_splat = args[0], args[1]
     nbytes = (payload.numel() + pair_splat.numel() + 3 * b.tile_base.numel()) * 4 \
         + cam.height * cam.width * 16 + used.numel() * 4
     rows.append(compositor_row(
         "composite_fwd", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:817", counts["composite_fwd"], err, ms,
-        plain_ms, walked, nbytes, "fwd", "beauty", pairs_binned=int(b.tile_count.sum()),
+        plain_ms, pc, nbytes, "fwd", "beauty", pairs_binned=int(b.tile_count.sum()),
         tiles_stopped_early=int((used < b.tile_span).sum())))
     return rows
 
@@ -1746,11 +1912,11 @@ def rank_sharded_render(rank, world, n_splats, width, height, frames):
         bargs = fwd[:5] + (used_c, b.grad_base, d_out, tchk, g_pad) + fwd[5:]
         r["bwd_ms"] = cuda_time_ms(lambda: kcomp.composite_bwd(*bargs, offsets=offsets), 10, warmup=2)[0]
         r["bwd_plain_ms"] = cuda_time_ms(lambda: kcomp.composite_bwd_plain(*bargs, offsets=offsets))[0]
-        walked = pairs_walked(used, b)
+        pc = pair_counts(fwd, used, offsets=offsets)
         chk_bytes = int(((used_c + cfg.chunk - 1) // cfg.chunk).sum()) * 1024 * 4
         in_bytes = (fwd[0].numel() + fwd[1].numel() + 3 * b.tile_base.numel()) * 4
         img_bytes = strip_h * strip_w * 16
-        r.update(pairs_walked=walked, pairs_binned=int(b.tile_count.sum()), fwd_max_abs_err=err,
+        r.update(pairs_walked=pc["pairs"], pair_counts=pc, pairs_binned=int(b.tile_count.sum()), fwd_max_abs_err=err,
                  bwd_max_abs_err=e_abs, bwd_worst_row_rel_err=e_rel,
                  fwd_bytes=in_bytes + img_bytes + used.numel() * 4,
                  bwd_bytes=in_bytes + 2 * used.numel() * 4 + img_bytes + chk_bytes + gspace.numel() * 4,
@@ -2046,13 +2212,13 @@ def phase_sharded_kernels(sharded, train):
     return [
         compositor_row(
             "composite_fwd_strided", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:314-316", fwd_launches,
-            k0["fwd_max_abs_err"], k0["fwd_ms"], k0["fwd_plain_ms"], k0["pairs_walked"], k0["fwd_bytes"], "fwd",
+            k0["fwd_max_abs_err"], k0["fwd_ms"], k0["fwd_plain_ms"], k0["pair_counts"], k0["fwd_bytes"], "fwd",
             "beauty", variant=f"strided mapping, grid {sharded[0]['grid']}, rank 0 at offsets {k0['offsets']}",
             launches_are="every strided launch of sharded_path and sharded_train_path, all ranks",
             pairs_binned=k0["pairs_binned"], tiles_stopped_early=k0["tiles_stopped_early"], per_rank=per_rank),
         compositor_row(
             "composite_bwd_strided", BWD_SRC, "gsplat_tpu/ops/pallas/composite.py:509-510", bwd_launches,
-            k0["bwd_max_abs_err"], k0["bwd_ms"], k0["bwd_plain_ms"], k0["pairs_walked"], k0["bwd_bytes"], "bwd",
+            k0["bwd_max_abs_err"], k0["bwd_ms"], k0["bwd_plain_ms"], k0["pair_counts"], k0["bwd_bytes"], "bwd",
             "beauty", variant=f"strided mapping, grid {sharded[0]['grid']}, rank 0 at offsets {k0['offsets']}",
             launches_are="every strided launch of sharded_path and sharded_train_path, all ranks",
             worst_row_rel_err=k0["bwd_worst_row_rel_err"], row_tolerance=GRAD_ROW_TOL),
@@ -2070,6 +2236,9 @@ def main():
                     help="a short run: stop after this phase (prints no result line)")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print what ptxas reports for each kernel (registers, shared memory, spills)")
+    ap.add_argument("--frame-digest", action="store_true",
+                    help="only print the SHA-256 of the main path's first frame and of its forward kernel's "
+                         "image and stop counters (to hold two trees' kernels to each other; no result line)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace three frames and three training steps with torch.profiler "
                          "(device busy share, top kernels)")
@@ -2079,6 +2248,9 @@ def main():
     timer = PhaseTimer()  # host seconds of every phase
     phase = timer.phase
     card = phase_device()
+    if args.frame_digest:
+        phase_frame_digest(args.splats, args.width, args.height)
+        return
     with phase("build"):
         phase_build(args.verbose_build)
     if args.stop_after == "build":

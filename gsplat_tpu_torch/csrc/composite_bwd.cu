@@ -53,22 +53,48 @@
 // reading back only what it wrote: 64 KB at chunk 128); pass 2 takes the
 // sub-blocks in reverse, replays one forward from its stored T with alpha and
 // T_i of its 8 pairs x 4 pixels kept in registers (64 of them), and walks it
-// back.  Every alpha is thus computed twice here, both times bit-equal to the
-// forward's; T is the forward's own product sequence.  About 80 KB of shared
-// memory and under 128 registers a thread leave two blocks on an SM.
+// back.  Every alpha is computed twice here, both times bit-equal to the
+// forward's; T is the forward's own product sequence.
 //
-// The reductions.  Nine block-wide sums per pair are the cost.  A thread adds
-// its 4 pixels, a warp reduces by xor-shuffles (16, 8, 4, 2, 1), lane 0 leaves
-// the warp's nine partials in shared memory, and after one barrier per
-// sub-block 72 threads add the 8 warps' partials in warp order: a fixed order
-// throughout, no float atomics, so two runs give bit-equal sums.  A warp owns
-// 4 whole pixel rows (not the forward's rows w, w+8, w+16, w+24), so a small
-// splat touches few warps; a warp in which no lane has alpha != 0 adds exact
-// zeros and skips the pair's arithmetic and shuffles.
+// The reach test.  A warp owns a rectangle of 128 pixels, 8 rows by 16
+// columns, a thread 4 of them in one column (of the 4 x 32, 8 x 16 and 16 x
+// 8 rectangles measured, the last two keep the fewest warps a pair and ran
+// within 2 % of each other; PERF.md).  When a chunk's payload is read, each
+// pair gets a mask of the warps whose rectangle it can reach
+// (composite_common.cuh pair_reaches; all warps in soft mode).  A warp
+// outside it skips the pair in pass 1 (T is
+// left as it is, which is exact: T * (1 - 0) = T), in the replay (alpha =
+// 0) and in the walk back: it adds exact zeros, so skipping changes no value.
+// The test keeps every warp a live pixel lies in; the AUDIT instance, for
+// the checks only, evaluates alpha in every skipped warp anyway and counts
+// the pixels where it is not 0 into `audit`, which must stay 0.
+//
+// The reductions.  Nine sums over the tile's pixels per pair.  A thread adds
+// its 4 pixels; a warp reduces the 9 x 8 sums of a sub-block across its 32
+// lanes by halving exchanges, folded into the walk back: pairs (7, 6), (5,
+// 4), ... meet at xor 16, where a lane keeps one pair's nine values and
+// sends the other's; then xor 8 and xor 4 join those, and xor 2 and xor 1
+// halve the nine values themselves.  71 shuffles a warp and sub-block
+// (against 45 a pair and warp), after which lane L holds up to 3 of the
+// sums of pair (L>>2 & 1)*4 + (L>>3 & 1)*2 + (L>>4 & 1).  The lanes leave
+// them in shared memory for the whole chunk, and after one barrier a chunk
+// all 256 threads add the 8 warps' partials in warp order and write the
+// gradient space.  A fixed order throughout and no float atomics, so two
+// runs give bit-equal sums.  A warp with no alpha != 0 in a sub-block skips
+// the exchanges and leaves zeros.
+//
+// The arithmetic of the walk back (K, dalpha, dp2, the nine sums, u) is
+// written with explicit __fmaf_rn; alpha and T are the forward's separately
+// rounded operations (the file is built with -fmad=false for them).
+//
+// Tile order: block b takes tile order[b] (the wrapper passes the tiles
+// longest walk first, so that the long tiles do not start in the last
+// wave); each tile stays wholly in one block, so the output does not depend
+// on the order.
 //
 // What bounds it: operations - two alpha evaluations and about 30 more float
-// operations per pixel and pair, plus 45 shuffles per warp and pair, against
-// 32 to 40 bytes of payload read and 32 to 36 bytes of sums written per pair.
+// operations per live pixel and pair, against 32 to 40 bytes of payload read
+// and 32 to 36 bytes of sums written per pair.
 //
 // Plain C interface: nothing is allocated or synchronised here, and the entry
 // returns cudaGetLastError() after its launch.
@@ -84,6 +110,7 @@ using namespace gsplat;
 constexpr int SUB = 8;              // pairs per sub-block of the replay
 constexpr int WARPS = THREADS / 32;
 constexpr int NSUMS = 9;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int pack_bf16_pair(float hi, float lo) {
     const unsigned h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
@@ -91,7 +118,29 @@ __device__ __forceinline__ int pack_bf16_pair(float hi, float lo) {
     return (int)((h << 16) | l);
 }
 
-template <bool PACKED, bool SOFT, bool DEPTH>
+// One halving exchange: this lane keeps `a` (bit clear) or `b` (bit set) of
+// two nine-value sets and adds its partner's copy of the same set.
+__device__ __forceinline__ void halve(float (&out)[NSUMS], const float (&a)[NSUMS], const float (&b)[NSUMS],
+                                      bool bit, int mask) {
+#pragma unroll
+    for (int r = 0; r < NSUMS; ++r) {
+        const float keep = bit ? b[r] : a[r];
+        const float send = bit ? a[r] : b[r];
+        out[r] = keep + __shfl_xor_sync(FULL, send, mask);
+    }
+}
+
+// A warp's rectangle of the tile: WARP_W columns by WARP_H rows, warps
+// numbered row by row.
+constexpr int WARP_W = 16;
+constexpr int WARP_H = 32 * PIX / WARP_W;
+constexpr int WARPS_PER_ROW = TILE / WARP_W;
+static_assert(WARPS_PER_ROW * (TILE / WARP_H) == WARPS, "the warps' rectangles cover the tile");
+
+__device__ __forceinline__ int warp_x0(int warp) { return (warp % WARPS_PER_ROW) * WARP_W; }
+__device__ __forceinline__ int warp_y0(int warp) { return (warp / WARPS_PER_ROW) * WARP_H; }
+
+template <bool PACKED, bool SOFT, bool DEPTH, bool AUDIT>
 __global__ void __launch_bounds__(THREADS, 2)
 composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit words
                      long long n_cols,
@@ -105,6 +154,8 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
                      const float* __restrict__ tchk,   // (num_tiles, max_chunks, 1024)
                      int* __restrict__ gout,           // (GROWS, g_pad) 32-bit words
                      long long g_pad,
+                     const int* __restrict__ order,    // (num_tiles,)
+                     int* __restrict__ audit,          // AUDIT: skipped live pixels
                      int ntx, int height, int width, int chunk, int max_chunks,
                      float max_alpha, int row_stride, int col_stride, int row_off,
                      int col_off) {
@@ -113,11 +164,11 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
     extern __shared__ int smem[];
     int* s_idx = smem;                                              // [chunk]
     int* s_pay = s_idx + chunk;                                     // [ROWS][chunk]
-    float* s_out = reinterpret_cast<float*>(s_pay + ROWS * chunk);  // [NSUMS][chunk]
-    float* s_red = s_out + NSUMS * chunk;                           // [2][SUB][WARPS][NSUMS]
-    float* s_tsub = s_red + 2 * SUB * WARPS * NSUMS;                // [chunk/SUB][PIX][THREADS]
+    int* s_reach = s_pay + ROWS * chunk;                            // [chunk] warp bits
+    float* s_red = reinterpret_cast<float*>(s_reach + chunk);       // [NSUMS][WARPS][chunk]
+    float* s_tsub = s_red + NSUMS * WARPS * chunk;                  // [chunk/SUB][PIX][THREADS]
 
-    const int t = blockIdx.x;
+    const int t = order[blockIdx.x];
     const int usedv = used[t];
     const int nused = (usedv + chunk - 1) / chunk;
     if (nused == 0) return;
@@ -130,17 +181,20 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
     const int lane = tid & 31;
     const int warp = tid >> 5;
 
-    // This thread's pixels: column `lane`, rows 4*warp + k.  x, y local;
-    // the centres from the global tile.
+    // This thread's pixels: column warp_x0 + lane % WARP_W, rows warp_y0 +
+    // PIX*(lane / WARP_W) + k of the tile.  x, y local; the centres from the
+    // global tile.
+    const int lx = warp_x0(warp) + lane % WARP_W;
+    const int ly0 = warp_y0(warp) + PIX * (lane / WARP_W);
     const int gy0 = (row_off + ty * row_stride) * TILE;
     const int gx0 = (col_off + tx * col_stride) * TILE;
-    const int x = tx * TILE + lane;
-    const float px = (float)(gx0 + lane) + 0.5f;
+    const int x = tx * TILE + lx;
+    const float px = (float)(gx0 + lx) + 0.5f;
     float py[PIX], dcr[PIX], dcg[PIX], dcb[PIX], u[PIX], zb[PIX];
 #pragma unroll
     for (int k = 0; k < PIX; ++k) {
-        const int y = ty * TILE + 4 * warp + k;
-        py[k] = (float)(gy0 + 4 * warp + k) + 0.5f;
+        const int y = ty * TILE + ly0 + k;
+        py[k] = (float)(gy0 + ly0 + k) + 0.5f;
         float4 d = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         zb[k] = far_depth();
         if (x < width && y < height) {
@@ -152,9 +206,16 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
         dcb[k] = d.z;
         u[k] = -d.w;
     }
-    const int pix0 = warp * (PIX * TILE) + lane;  // + k * TILE: row-major within the tile
+    const int pix0 = ly0 * TILE + lx;  // + k * TILE: row-major within the tile
+    const unsigned my_bit = 1u << warp;
+    // the lane's place in the halving exchanges: the pair of the sub-block
+    // its final sums belong to, and which of the nine
+    const bool b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1, b2 = (lane >> 2) & 1;
+    const bool b1 = (lane >> 1) & 1, b0 = lane & 1;
+    const int my_pair = (int)b2 * 4 + (int)b3 * 2 + (int)b4;
+    const int my_r0 = (int)b1 * 5 + (int)b0 * 3;
+    const int my_cnt = b0 ? (b1 ? 1 : 2) : 3;
 
-    int buf = 0;
     for (int ci = nused - 1; ci >= 0; --ci) {
         const int c0 = ci * chunk;
         const int lo = max(c0, phi);
@@ -162,6 +223,23 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
         load_chunk<ROWS>(fields, n_cols, pair_splat, base, c0, lo, hi, chunk, s_idx, s_pay);
         const int p_lo = lo - c0;
         const int p_hi = hi - c0;
+        // Every pair's warp mask.
+        for (int p = p_lo + tid; p < p_hi; p += THREADS) {
+            unsigned bits = (1u << WARPS) - 1u;
+            if (!SOFT) {
+                const Pair q = read_pair<PACKED, DEPTH>(s_pay, chunk, p);
+                bits = 0u;
+#pragma unroll
+                for (int w = 0; w < WARPS; ++w) {
+                    const float xc = (float)(gx0 + warp_x0(w)) + 0.5f * (float)WARP_W;
+                    const float yc = (float)(gy0 + warp_y0(w)) + 0.5f * (float)WARP_H;
+                    if (pair_reaches(q, xc, yc, 0.5f * (float)(WARP_W - 1), 0.5f * (float)(WARP_H - 1)))
+                        bits |= 1u << w;
+                }
+            }
+            s_reach[p] = (int)bits;
+        }
+        __syncthreads();
         const int sb0 = p_lo / SUB;
         const int sb1 = (p_hi - 1) / SUB;
 
@@ -179,7 +257,7 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
             if (s == sb1) break;
             for (int j = 0; j < SUB; ++j) {
                 const int p = s * SUB + j;
-                if (p < p_lo || p >= p_hi) continue;
+                if (p < p_lo || p >= p_hi || !(s_reach[p] & my_bit)) continue;
                 const Pair q = read_pair<PACKED, DEPTH>(s_pay, chunk, p);
                 const float dx = px - q.cx;
                 const float dxax = dx * q.ax;
@@ -199,16 +277,18 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
             float a[SUB][PIX], Tm[SUB][PIX];
 #pragma unroll
             for (int k = 0; k < PIX; ++k) T[k] = s_tsub[(s * PIX + k) * THREADS + tid];
+            bool any_alpha = false;
 #pragma unroll
             for (int j = 0; j < SUB; ++j) {
                 const int p = s * SUB + j;
                 const bool valid = (p >= p_lo) && (p < p_hi);
+                const bool reach = valid && (s_reach[p] & my_bit);
 #pragma unroll
                 for (int k = 0; k < PIX; ++k) {
                     a[j][k] = 0.0f;
                     Tm[j][k] = T[k];
                 }
-                if (valid) {
+                if (reach) {
                     const Pair q = read_pair<PACKED, DEPTH>(s_pay, chunk, p);
                     const float dx = px - q.cx;
                     const float dxax = dx * q.ax;
@@ -218,20 +298,37 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
                         const float alpha =
                             pixel_alpha<SOFT, DEPTH>(q, dxax, dxbx, py[k] - q.cy, max_alpha, zb[k]);
                         a[j][k] = alpha;
+                        any_alpha |= alpha != 0.0f;
                         T[k] = T[k] * (1.0f - alpha);
                     }
+                } else if (AUDIT && valid) {
+                    const Pair q = read_pair<PACKED, DEPTH>(s_pay, chunk, p);
+                    const float dx = px - q.cx;
+                    int live = 0;
+#pragma unroll
+                    for (int k = 0; k < PIX; ++k)
+                        live += pixel_alpha<SOFT, DEPTH>(q, dx * q.ax, dx * q.bx, py[k] - q.cy, max_alpha,
+                                                         zb[k]) != 0.0f;
+                    if (live) atomicAdd(audit, live);
                 }
             }
+            // Where this sub-block's partials go: pair my_pair, sums my_r0 ...
+            float* dst = s_red + (my_r0 * WARPS + warp) * chunk + s * SUB + my_pair;
+            if (!__any_sync(FULL, any_alpha)) {
+                // no alpha != 0 in the warp: zeros, and u stays as it is
+                for (int i = 0; i < my_cnt; ++i) dst[i * WARPS * chunk] = 0.0f;
+                continue;
+            }
+            float odd[NSUMS], l1_hi[NSUMS], l2_hi[NSUMS], l3[NSUMS];
 #pragma unroll
             for (int j = SUB - 1; j >= 0; --j) {
-                const int p = s * SUB + j;
-                const bool valid = (p >= p_lo) && (p < p_hi);
                 float sums[NSUMS];
 #pragma unroll
                 for (int r = 0; r < NSUMS; ++r) sums[r] = 0.0f;
                 const bool mine = (a[j][0] != 0.0f) || (a[j][1] != 0.0f) || (a[j][2] != 0.0f) ||
                                   (a[j][3] != 0.0f);
-                if (__any_sync(0xffffffffu, mine)) {
+                if (__any_sync(FULL, mine)) {
+                    const int p = s * SUB + j;
                     const Pair q = read_pair<PACKED, DEPTH>(s_pay, chunk, p);
                     const float dx = px - q.cx;
 #pragma unroll
@@ -240,73 +337,95 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
                         const float alpha = a[j][k];
                         const float t_i = Tm[j][k];
                         const float w_i = alpha * t_i;
-                        const float k_i = q.cr * dcr[k] + q.cg * dcg[k] + q.cb * dcb[k];
+                        const float k_i = __fmaf_rn(q.cr, dcr[k], __fmaf_rn(q.cg, dcg[k], q.cb * dcb[k]));
                         const float ku = k_i - u[k];
                         const float d_alpha = t_i * ku;
                         const bool live = (alpha < max_alpha) && (SOFT || alpha > 0.0f);
                         const float ga = live ? d_alpha : 0.0f;
-                        const float dp2 = -2.0f * ga * alpha;
+                        const float dp2 = (-2.0f * ga) * alpha;
                         const float dp2dx = dp2 * dx;
                         const float dp2dy = dp2 * dy;
                         sums[0] += dp2dx;
                         sums[1] += dp2dy;
-                        sums[2] += dp2dx * dx;
-                        sums[3] += dp2dx * dy;
-                        sums[4] += dp2dy * dy;
-                        sums[5] += dcr[k] * w_i;
-                        sums[6] += dcg[k] * w_i;
-                        sums[7] += dcb[k] * w_i;
+                        sums[2] = __fmaf_rn(dp2dx, dx, sums[2]);
+                        sums[3] = __fmaf_rn(dp2dx, dy, sums[3]);
+                        sums[4] = __fmaf_rn(dp2dy, dy, sums[4]);
+                        sums[5] = __fmaf_rn(dcr[k], w_i, sums[5]);
+                        sums[6] = __fmaf_rn(dcg[k], w_i, sums[6]);
+                        sums[7] = __fmaf_rn(dcb[k], w_i, sums[7]);
                         sums[8] += dp2;
-                        u[k] = u[k] + alpha * ku;
-                    }
-#pragma unroll
-                    for (int off = 16; off >= 1; off >>= 1) {
-#pragma unroll
-                        for (int r = 0; r < NSUMS; ++r)
-                            sums[r] += __shfl_xor_sync(0xffffffffu, sums[r], off);
+                        u[k] = __fmaf_rn(alpha, ku, u[k]);
                     }
                 }
-                if (lane == 0 && valid) {
-                    float* dst = s_red + ((buf * SUB + j) * WARPS + warp) * NSUMS;
+                // Pair j's bits: j0 at lane bit 4, j1 at bit 3, j2 at bit 2.
+                if (j & 1) {
 #pragma unroll
-                    for (int r = 0; r < NSUMS; ++r) dst[r] = sums[r];
+                    for (int r = 0; r < NSUMS; ++r) odd[r] = sums[r];
+                } else {
+                    float l1[NSUMS];
+                    halve(l1, sums, odd, b4, 16);
+                    if (j & 2) {
+#pragma unroll
+                        for (int r = 0; r < NSUMS; ++r) l1_hi[r] = l1[r];
+                    } else {
+                        float l2[NSUMS];
+                        halve(l2, l1, l1_hi, b3, 8);
+                        if (j & 4) {
+#pragma unroll
+                            for (int r = 0; r < NSUMS; ++r) l2_hi[r] = l2[r];
+                        } else {
+                            halve(l3, l2, l2_hi, b2, 4);
+                        }
+                    }
                 }
             }
-            __syncthreads();
-            // The 8 warps' partials of this sub-block's pairs, added in warp
-            // order.  The next sub-block writes the other half of s_red.
-            if (tid < SUB * NSUMS) {
-                const int j = tid / NSUMS;
-                const int r = tid - j * NSUMS;
-                const float* src = s_red + (buf * SUB + j) * WARPS * NSUMS + r;
-                float acc = 0.0f;
+            // The nine values of pair my_pair over the 8 lanes that share
+            // bits 4..2; xor 2 and xor 1 halve them: 5 + 3 shuffles.
+            float k5[5];
 #pragma unroll
-                for (int w = 0; w < WARPS; ++w) acc += src[w * NSUMS];
-                s_out[r * chunk + s * SUB + j] = acc;
+            for (int i = 0; i < 5; ++i) {
+                const float lo5 = l3[i];
+                const float hi5 = i < 4 ? l3[5 + i] : 0.0f;
+                k5[i] = (b1 ? hi5 : lo5) + __shfl_xor_sync(FULL, b1 ? lo5 : hi5, 2);
             }
-            buf ^= 1;
+            float k3[3];
+#pragma unroll
+            for (int i = 0; i < 3; ++i) {
+                const float lo3 = k5[i];
+                const float hi3 = i < 2 ? k5[3 + i] : 0.0f;
+                k3[i] = (b0 ? hi3 : lo3) + __shfl_xor_sync(FULL, b0 ? lo3 : hi3, 1);
+            }
+#pragma unroll
+            for (int i = 0; i < 3; ++i)
+                if (i < my_cnt) dst[i * WARPS * chunk] = k3[i];
         }
         __syncthreads();
 
-        // The chunk's own positions, row by row, to the gradient space.
+        // The chunk's own positions, row by row, to the gradient space: the 8
+        // warps' partials added in warp order.
         const int cnt = p_hi - p_lo;
         for (int w = tid; w < cnt * GROWS; w += THREADS) {
             const int r = w / cnt;
             const int p = p_lo + (w - r * cnt);
+            auto total = [&](int row) {
+                const float* src = s_red + row * WARPS * chunk + p;
+                float acc = 0.0f;
+#pragma unroll
+                for (int wv = 0; wv < WARPS; ++wv) acc += src[wv * chunk];
+                return acc;
+            };
             int v;
-            if (!PACKED) {
-                v = __float_as_int(s_out[r * chunk + p]);
-            } else if (r < 6) {
-                v = __float_as_int(s_out[r * chunk + p]);
+            if (!PACKED || r < 6) {
+                v = __float_as_int(total(r));
             } else if (r == 6) {
-                v = pack_bf16_pair(s_out[6 * chunk + p], s_out[7 * chunk + p]);
+                v = pack_bf16_pair(total(6), total(7));
             } else {
-                v = __float_as_int(s_out[8 * chunk + p]);
+                v = __float_as_int(total(8));
             }
             gout[(long long)r * g_pad + gbase + c0 + p] = v;
         }
-        // Frees s_idx, s_pay and s_out for the next chunk.
-        __syncthreads();
+        // load_chunk's first barrier keeps the next chunk's writes of s_red
+        // and s_tsub behind these reads.
     }
 }
 
@@ -321,6 +440,9 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
 // gout: (9, g_pad) float32, or with packed != 0 (8, g_pad) int32; zero-filled
 // by the caller.  row_stride, col_stride, row_off, col_off: the forward's tile
 // mapping (1, 1, 0, 0 for a full frame; only that with depth != 0).
+// order: a permutation of the nty*ntx tiles, the order blocks take them in.
+// audit: null, or one int32 (hard cutoff only) to which the audit instance
+// adds the pixels with alpha != 0 in the warps the reach test skipped.
 extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int packed, int soft,
                                     int depth, const void* bgd, const void* pair_splat,
                                     const void* tile_base,
@@ -329,7 +451,7 @@ extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int pa
                                     const void* tchk, void* gout, long long g_pad, int nty,
                                     int ntx, int height, int width, int chunk, int max_chunks,
                                     float max_alpha, int row_stride, int col_stride, int row_off,
-                                    int col_off, void* stream) {
+                                    int col_off, const void* order, void* audit, void* stream) {
     (void)tile_span;  // used[t] <= span[t] already bounds every walk
     const int num_tiles = nty * ntx;
     if (num_tiles <= 0) return 0;
@@ -338,9 +460,11 @@ extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int pa
     if (row_stride < 1 || col_stride < 1 || row_off < 0 || col_off < 0) return (int)cudaErrorInvalidValue;
     if (depth && (row_stride != 1 || col_stride != 1 || row_off != 0 || col_off != 0))
         return (int)cudaErrorInvalidValue;
+    if (order == nullptr) return (int)cudaErrorInvalidValue;
+    if (audit != nullptr && soft) return (int)cudaErrorInvalidValue;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
     const int rows = packed ? 8 : (depth ? 11 : 10);
-    const size_t words = (size_t)chunk * (1 + rows + NSUMS) + 2 * SUB * WARPS * NSUMS +
+    const size_t words = (size_t)chunk * (1 + rows + 1 + NSUMS * WARPS) +
                          (size_t)(chunk / SUB) * gsplat::PIX * gsplat::THREADS;
     const size_t shmem = words * sizeof(int);
     if (shmem > 227 * 1024) return (int)cudaErrorInvalidValue;
@@ -353,23 +477,32 @@ extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int pa
     const int* gb = static_cast<const int*>(grad_base);
     const float* dout = static_cast<const float*>(d_out);
     const float* tc = static_cast<const float*>(tchk);
+    const int* od = static_cast<const int*>(order);
+    int* au = static_cast<int*>(audit);
     int* go = static_cast<int*>(gout);
-#define GSPLAT_LAUNCH(P, S, D)                                                                 \
-    do {                                                                                       \
-        cudaError_t e = cudaFuncSetAttribute(composite_bwd_kernel<P, S, D>,                    \
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,      \
-                                             (int)shmem);                                      \
-        if (e != cudaSuccess) return (int)e;                                                   \
-        composite_bwd_kernel<P, S, D><<<num_tiles, gsplat::THREADS, shmem, s>>>(               \
-            f, n_cols, bd, ps, tb, tp, us, gb, dout, tc, go, g_pad, ntx, height, width, chunk, \
-            max_chunks, max_alpha, row_stride, col_stride, row_off, col_off);                  \
+#define GSPLAT_LAUNCH(P, S, D, A)                                                                \
+    do {                                                                                         \
+        cudaError_t e = cudaFuncSetAttribute(composite_bwd_kernel<P, S, D, A>,                   \
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,        \
+                                             (int)shmem);                                        \
+        if (e != cudaSuccess) return (int)e;                                                     \
+        composite_bwd_kernel<P, S, D, A><<<num_tiles, gsplat::THREADS, shmem, s>>>(              \
+            f, n_cols, bd, ps, tb, tp, us, gb, dout, tc, go, g_pad, od, au, ntx, height, width,  \
+            chunk, max_chunks, max_alpha, row_stride, col_stride, row_off, col_off);             \
     } while (0)
+    const bool a = au != nullptr;
     if (depth) {
-        if (soft) GSPLAT_LAUNCH(false, true, true); else GSPLAT_LAUNCH(false, false, true);
+        if (soft) GSPLAT_LAUNCH(false, true, true, false);
+        else if (a) GSPLAT_LAUNCH(false, false, true, true);
+        else GSPLAT_LAUNCH(false, false, true, false);
     } else if (packed) {
-        if (soft) GSPLAT_LAUNCH(true, true, false); else GSPLAT_LAUNCH(true, false, false);
+        if (soft) GSPLAT_LAUNCH(true, true, false, false);
+        else if (a) GSPLAT_LAUNCH(true, false, false, true);
+        else GSPLAT_LAUNCH(true, false, false, false);
     } else {
-        if (soft) GSPLAT_LAUNCH(false, true, false); else GSPLAT_LAUNCH(false, false, false);
+        if (soft) GSPLAT_LAUNCH(false, true, false, false);
+        else if (a) GSPLAT_LAUNCH(false, false, false, true);
+        else GSPLAT_LAUNCH(false, false, false, false);
     }
 #undef GSPLAT_LAUNCH
     return (int)cudaGetLastError();

@@ -107,6 +107,44 @@ __device__ __forceinline__ float pixel_alpha(const Pair& q, float dxax, float dx
     return alpha;
 }
 
+// The reach test: can a pair's hard-cutoff alpha be non-zero at any pixel
+// centre of a rectangle?  The rectangle's centres span [xc - hw, xc + hw] x
+// [yc - hh, yc + hh] (global pixel coordinates).  alpha != 0 needs |qx| <= 2
+// and |qy| <= 2, and qx = ax*dx + ay*dy is affine in the pixel, so over the
+// rectangle it ranges over qx(centre) +- (|ax|*hw + |ay|*hh), and likewise
+// qy: the test drops the rectangle only when one range misses [-2, 2].  It
+// never divides, so a singular or rotated quad basis is handled like any
+// other.  The margin covers rounding: the kernels compute qx at a pixel with
+// an error below 3 ulp of s = |ax*dx| + |ay*dy| (dx, dy, the products and the
+// sum each rounded once), this test computes qx(centre) with the same bound,
+// and |qx| <= 2 + that error is all a live pixel can show (a float above 2
+// squares to a float above 4).  So the limit is 2 + h + 1e-5*(s + h) +
+// 1e-4, about 170 ulp of s beyond what any live pixel reaches.  A payload
+// with an infinite or NaN entry keeps every rectangle (and so does any NaN
+// the arithmetic meets: a comparison drops only when it is true).  A
+// degenerate basis (A parallel to B, or zero) needs no special case: the
+// ranges are exact for it too.  The depth test only kills, so it needs no
+// term here; soft mode has no cutoff and never calls this.
+// ops/kernels/composite.py reach_mask_plain is the same arithmetic in
+// PyTorch.
+__device__ __forceinline__ bool pair_reaches(const Pair& q, float xc, float yc, float hw, float hh) {
+    if (!(isfinite(q.cx) && isfinite(q.cy) && isfinite(q.ax) && isfinite(q.ay) && isfinite(q.bx) &&
+          isfinite(q.by)))
+        return true;
+    const float dxc = xc - q.cx;
+    const float dyc = yc - q.cy;
+    const float qx = dxc * q.ax + dyc * q.ay;
+    const float qy = dxc * q.bx + dyc * q.by;
+    const float aax = fabsf(q.ax), aay = fabsf(q.ay), abx = fabsf(q.bx), aby = fabsf(q.by);
+    const float hx = aax * hw + aay * hh;
+    const float hy = abx * hw + aby * hh;
+    const float sx = aax * (fabsf(dxc) + hw) + aay * (fabsf(dyc) + hh);
+    const float sy = abx * (fabsf(dxc) + hw) + aby * (fabsf(dyc) + hh);
+    const float lx = 2.0001f + hx + 1e-5f * (sx + hx);
+    const float ly = 2.0001f + hy + 1e-5f * (sy + hy);
+    return !(fabsf(qx) > lx || fabsf(qy) > ly);
+}
+
 // Wireframe mode: an opaque band on the quad's +-2 edge replaces the Gaussian
 // falloff (no max_alpha clamp, no depth test).  wq1 = line_px * |A| and
 // wq2 = line_px * |B| are the band's half-widths in quad units, per pair.

@@ -16,18 +16,25 @@ the top of each chunk it walks (``fwd_chk_call`` of the JAX package).
 tile a reverse walk of the chunks the forward walked, α recomputed by the
 forward's own operations, T replayed from the checkpoints, and per pair the
 nine raw moment sums over the tile's 1024 pixels written into the tile's own
-region of the gradient address space (``binning.grad_base``).
+region of the gradient address space (``binning.grad_base``).  With the hard
+cutoff a warp skips every pair whose |q| ≤ 2 region cannot reach its
+rectangle of 128 pixels (the reach test, :func:`reach_mask_plain` its plain
+twin); the skipped warps add exact zeros, so the sums do not change.
+:func:`composite_bwd_audit` runs the instance that checks that on the card.
 
 ``CompositeSplats`` (``composite_splats_diff``) is the counterpart of the
 custom VJP ``composite_splats_pallas``: checkpointed forward; backward kernel
 → segment sum (``ops/kernels/segsum.py``) → the per-splat quad-basis combine.
 
-What bounds the two kernels: operations.  Every live pair costs 1024 pixel
-updates of about 30 float operations and one ``expf`` (twice that in the
-backward, which replays a chunk before it walks it back, plus nine block-wide
-reductions per pair) against 32–40 bytes of payload.  Both sources are
-compiled without FMA contraction so that they agree with the plain versions —
-and with each other — across the two hard thresholds (see the source notes).
+What bounds the two kernels: operations.  A walked pair costs up to 1024
+pixel updates of about 30 float operations and one ``expf`` (twice that in
+the backward, which replays a chunk before it walks it back, plus nine sums
+reduced over the tile) against 32–40 bytes of payload; the inputs need only
+the updates with α ≠ 0 (:func:`live_pixel_updates`, what ``utils/sol.py``
+prices).  Both sources are compiled without FMA contraction so that α agrees
+with the plain versions — and between the two kernels — across the two hard
+thresholds (see the source notes); the backward's walk back contracts with
+explicit ``__fmaf_rn``.
 
 Modes, as in the TPU kernel: ``config.depth_test`` (an 11th payload row, the
 splat's view-z, tested per pixel against the caller's (H, W) scene depth
@@ -115,7 +122,8 @@ def _library_bwd():
             ctypes.c_int, p,
             p, p, p, p, p, p, p, p, p, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            p, p, p,
         ]
         lib.gsplat_composite_bwd.restype = ctypes.c_int
         _lib_bwd = lib
@@ -273,43 +281,164 @@ class _PlainTiles:
         """Position ``pos`` of every tile's segment: ``(valid, alpha, dx, dy,
         color)`` — (T,) bool, (T, 32, 32) f32 ×3 (dx, dy broadcastable) and
         the (T, 3) colours."""
-        config = self.config
         valid = active & (self.phi <= pos) & (self.span > pos)
         idx = self.pair_splat[torch.clamp(self.base + pos, max=self.p_len - 1)].long()
         f = self.fields[:, idx]  # (rows, T)
-        if self.packed:
-            geo = f[0:6].view(torch.float32)
-            cr, cg = unpack2(f[6])
-            cb, op_raw = unpack2(f[7])
-        else:
-            geo = f[0:6]
-            cr, cg, cb, op_raw = f[6], f[7], f[8], f[9]
-        col = _col
+        geo, cr, cg, cb, op_raw = _payload_columns(f, self.packed)
         op = torch.where(valid, op_raw, 0.0)
-        dx = self.px - col(geo[0])
-        dy = self.py - col(geo[1])
-        qx = dx * col(geo[2]) + dy * col(geo[3])
-        qy = dx * col(geo[4]) + dy * col(geo[5])
-        color = torch.stack([cr, cg, cb], dim=1)
-        if self.mode == MODE_WIRE:
-            line_px = config.line_px
-            wq1 = line_px * torch.sqrt(geo[2] * geo[2] + geo[3] * geo[3])
-            wq2 = line_px * torch.sqrt(geo[4] * geo[4] + geo[5] * geo[5])
-            aqx, aqy = torch.abs(qx), torch.abs(qy)
-            m = torch.maximum(aqx, aqy)
-            wq = torch.where(aqx > aqy, col(wq1), col(wq2))
-            on_edge = (torch.abs(m - QUAD_EXTENT) <= wq) & (col(op) > 0.0)
-            return valid, on_edge.to(torch.float32), dx, dy, color
-        qx2 = qx * qx
-        qy2 = qy * qy
-        power = qx2 + qy2
-        alpha = torch.minimum(torch.exp(-power) * col(op), self.max_alpha)
-        if not config.soft_cutoff:
-            inside = torch.maximum(qx2, qy2) <= QUAD_EXTENT * QUAD_EXTENT
-            alpha = torch.where(inside & (alpha >= ALPHA_CUTOFF), alpha, 0.0)
-        if self.mode == MODE_DEPTH:
-            alpha = torch.where(col(f[10]) <= self.bgd, alpha, 0.0)
-        return valid, alpha, dx, dy, color
+        viewz = f[10] if self.mode == MODE_DEPTH else None
+        alpha, dx, dy = _pair_alpha(geo, op, viewz, self.px, self.py, self.bgd, self.config, self.mode,
+                                    self.max_alpha)
+        return valid, alpha, dx, dy, torch.stack([cr, cg, cb], dim=1)
+
+
+def _payload_columns(f, packed):
+    """(rows, B) payload columns → the (6, B) float32 geometry rows and the
+    colour and opacity rows (B,) each."""
+    if packed:
+        cr, cg = unpack2(f[6])
+        cb, op = unpack2(f[7])
+        return f[0:6].view(torch.float32), cr, cg, cb, op
+    return f[0:6], f[6], f[7], f[8], f[9]
+
+
+def _pair_alpha(geo, op, viewz, px, py, bgd, config, mode, max_alpha):
+    """α of B pairs over the pixel centres ``px`` (B, 1, 32) × ``py`` (B, 32,
+    1) by the kernels' separately rounded operations, and dx, dy; ``bgd``
+    the (B, 32, 32) scene depth in depth mode.  In wireframe mode the band
+    test's 0/1 coverage."""
+    col = _col
+    dx = px - col(geo[0])
+    dy = py - col(geo[1])
+    qx = dx * col(geo[2]) + dy * col(geo[3])
+    qy = dx * col(geo[4]) + dy * col(geo[5])
+    if mode == MODE_WIRE:
+        line_px = config.line_px
+        wq1 = line_px * torch.sqrt(geo[2] * geo[2] + geo[3] * geo[3])
+        wq2 = line_px * torch.sqrt(geo[4] * geo[4] + geo[5] * geo[5])
+        aqx, aqy = torch.abs(qx), torch.abs(qy)
+        m = torch.maximum(aqx, aqy)
+        wq = torch.where(aqx > aqy, col(wq1), col(wq2))
+        on_edge = (torch.abs(m - QUAD_EXTENT) <= wq) & (col(op) > 0.0)
+        return on_edge.to(torch.float32), dx, dy
+    qx2 = qx * qx
+    qy2 = qy * qy
+    power = qx2 + qy2
+    alpha = torch.minimum(torch.exp(-power) * col(op), max_alpha)
+    if not config.soft_cutoff:
+        inside = torch.maximum(qx2, qy2) <= QUAD_EXTENT * QUAD_EXTENT
+        alpha = torch.where(inside & (alpha >= ALPHA_CUTOFF), alpha, 0.0)
+    if mode == MODE_DEPTH:
+        alpha = torch.where(col(viewz) <= bgd, alpha, 0.0)
+    return alpha, dx, dy
+
+
+# The backward kernel's warps, each a rectangle of WARP_W x WARP_H pixels of
+# the tile, numbered row by row (csrc/composite_bwd.cu).
+WARPS, WARP_W, WARP_H = 8, 16, 8
+
+
+def warp_rects():
+    """The backward kernel's warp rectangles: ``(x0, y0, w, h)`` in the tile
+    for warps 0..7."""
+    per_row = TILE // WARP_W
+    return [((k % per_row) * WARP_W, (k // per_row) * WARP_H, WARP_W, WARP_H) for k in range(WARPS)]
+
+
+def reach_mask_plain(geo: torch.Tensor, gx0: torch.Tensor, gy0: torch.Tensor) -> torch.Tensor:
+    """Plain version of the backward kernel's reach test
+    (``csrc/composite_common.cuh`` ``pair_reaches``), by the same separately
+    rounded float32 operations: for B pairs with (6, B) geometry rows ``cx cy
+    ax ay bx by`` in tiles whose first pixel is at global (``gx0``, ``gy0``)
+    (B,), the (B, 8) mask of the warps whose pixel rectangle the pair can
+    reach with the hard cutoff.  A warp left out holds no pixel with α ≠ 0;
+    a pair with an infinite or NaN entry keeps every warp."""
+    f32 = torch.float32
+    cx, cy, ax, ay, bx, by = (r[:, None] for r in geo)
+    rects = warp_rects()
+    x0 = torch.tensor([r[0] for r in rects], dtype=torch.int32, device=geo.device)
+    y0 = torch.tensor([r[1] for r in rects], dtype=torch.int32, device=geo.device)
+    w, h = float(rects[0][2]), float(rects[0][3])
+    xc = (gx0[:, None] + x0[None, :]).to(f32) + 0.5 * w
+    yc = (gy0[:, None] + y0[None, :]).to(f32) + 0.5 * h
+    hw, hh = 0.5 * (w - 1.0), 0.5 * (h - 1.0)
+    dxc = xc - cx
+    dyc = yc - cy
+    qx = dxc * ax + dyc * ay
+    qy = dxc * bx + dyc * by
+    aax, aay, abx, aby = ax.abs(), ay.abs(), bx.abs(), by.abs()
+    hx = aax * hw + aay * hh
+    hy = abx * hw + aby * hh
+    sx = aax * (dxc.abs() + hw) + aay * (dyc.abs() + hh)
+    sy = abx * (dxc.abs() + hw) + aby * (dyc.abs() + hh)
+    lx = 2.0001 + hx + 1e-5 * (sx + hx)
+    ly = 2.0001 + hy + 1e-5 * (sy + hy)
+    finite = torch.isfinite(geo).all(dim=0)[:, None]
+    return finite.logical_not() | ~((qx.abs() > lx) | (qy.abs() > ly))
+
+
+def walked_pair_counts(fields, pair_splat, tile_base, tile_phi, used, nty, ntx, config, bg_depth=None,
+                       offsets=(0, 0), batch=16384) -> dict:
+    """What the compositors' inputs need, counted over the walked pairs of a
+    frame (positions ``[phi, used)`` of every tile), by the plain α:
+    ``pairs``; ``live_pixel_updates``, the (pair, pixel) updates with α ≠ 0
+    (the band test in wireframe mode, the depth test with
+    ``config.depth_test``, every pixel with the soft cutoff, which has no
+    hard zero); ``live_warps``, the (pair, warp) couples with a pixel α ≠ 0
+    in the warp's rectangle; ``reach_warps``, those the backward's reach
+    test keeps (all eight with the soft cutoff and in wireframe mode, which
+    have none).  Runs in batches of ``batch`` pairs on the inputs' device."""
+    packed = config.payload_dtype == "packed"
+    mode = kernel_mode(config)
+    dev = fields.device
+    row_stride, col_stride, row_off, col_off = tile_mapping(config, offsets)
+    counts = torch.clamp(used - tile_phi, min=0).long()
+    total = int(counts.sum())
+    out = {"pairs": total, "live_pixel_updates": 0, "live_warps": 0, "reach_warps": 0}
+    if total == 0:
+        return out
+    tile_of = torch.repeat_interleave(torch.arange(nty * ntx, device=dev), counts)
+    start = torch.cumsum(counts, 0) - counts
+    pos = tile_phi.long()[tile_of] + torch.arange(total, device=dev) - start[tile_of]
+    cols = pair_splat[tile_base.long()[tile_of] + pos].long()
+    bgd = None if bg_depth is None else _depth_tiles(bg_depth, nty, ntx)
+    max_alpha = torch.full((), config.max_alpha, dtype=torch.float32, device=dev)
+    iota = torch.arange(TILE, dtype=torch.float32, device=dev) + 0.5
+    # (8, 32, 32): the warp each pixel of a tile lies in
+    owner = torch.empty((TILE, TILE), dtype=torch.long, device=dev)
+    for k, (x0, y0, w, h) in enumerate(warp_rects()):
+        owner[y0:y0 + h, x0:x0 + w] = k
+    in_warp = owner[None] == torch.arange(WARPS, device=dev)[:, None, None]
+    for b0 in range(0, total, batch):
+        t = tile_of[b0:b0 + batch]
+        f = fields[:, cols[b0:b0 + batch]]
+        geo, _, _, _, op = _payload_columns(f, packed)
+        gx0 = ((t % ntx) * col_stride + col_off) * TILE
+        gy0 = (torch.div(t, ntx, rounding_mode="floor") * row_stride + row_off) * TILE
+        px = gx0.to(torch.float32)[:, None, None] + iota[None, None, :]
+        py = gy0.to(torch.float32)[:, None, None] + iota[None, :, None]
+        viewz = f[10] if mode == MODE_DEPTH else None
+        alpha, _, _ = _pair_alpha(geo, op, viewz, px, py, None if bgd is None else bgd[t], config, mode, max_alpha)
+        live = alpha != 0.0
+        if config.soft_cutoff and mode != MODE_WIRE:
+            out["live_pixel_updates"] += live.shape[0] * TILE * TILE
+        else:
+            out["live_pixel_updates"] += int(live.sum())
+        if config.soft_cutoff or mode == MODE_WIRE:  # no reach test: every warp
+            out["reach_warps"] += live.shape[0] * WARPS
+        else:
+            out["reach_warps"] += int(reach_mask_plain(geo, gx0, gy0).sum())
+        out["live_warps"] += int((live[:, None] & in_warp[None]).any(dim=(2, 3)).sum())
+    return out
+
+
+def live_pixel_updates(fields, pair_splat, tile_base, tile_phi, used, nty, ntx, config, bg_depth=None,
+                       offsets=(0, 0)) -> int:
+    """The (pair, pixel) updates with α ≠ 0 over the walked pairs of a frame
+    (:func:`walked_pair_counts`): the work a compositor's inputs need, which
+    the bounds of ``utils/sol.py`` price."""
+    return walked_pair_counts(fields, pair_splat, tile_base, tile_phi, used, nty, ntx, config, bg_depth,
+                              offsets)["live_pixel_updates"]
 
 
 def _col(v):
@@ -665,7 +794,6 @@ def composite_bwd(
     On CUDA tensors this launches the kernel (or raises); on CPU tensors it
     takes :func:`composite_bwd_plain`.
     """
-    global launches_bwd, launches_bwd_depth, launches_bwd_strided
     packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
                     bg_depth, offsets)
     _check_forward_only(config, True)
@@ -677,6 +805,31 @@ def composite_bwd(
             fields, pair_splat, tile_base, tile_phi, tile_span, used, grad_base, d_out, tchk,
             g_pad, nty, ntx, height, width, config, bg_depth=bg_depth, offsets=offsets,
         )
+    return _composite_bwd_cuda(fields, pair_splat, tile_base, tile_phi, tile_span, used, grad_base, d_out,
+                               tchk, g_pad, nty, ntx, height, width, config, bg_depth, offsets, packed)[0]
+
+
+def composite_bwd_audit(fields, pair_splat, tile_base, tile_phi, tile_span, used, grad_base, d_out, tchk,
+                        g_pad, nty, ntx, height, width, config, bg_depth=None, offsets=(0, 0)):
+    """The backward kernel's audit instance, for the checks (CUDA tensors,
+    hard cutoff): :func:`composite_bwd`'s gradient space, and the number of
+    pixels with α ≠ 0 in the warps the reach test skipped, which must be 0.
+    Counts as a launch of the backward like any other."""
+    packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
+                    bg_depth, offsets)
+    _check_forward_only(config, True)
+    _check_bwd(used, grad_base, d_out, tchk, g_pad, nty * ntx, height, width, config, fields.device)
+    if not fields.is_cuda or config.soft_cutoff:
+        raise ValueError("the audit instance runs on CUDA tensors with the hard cutoff only")
+    gspace, skipped = _composite_bwd_cuda(fields, pair_splat, tile_base, tile_phi, tile_span, used, grad_base,
+                                          d_out, tchk, g_pad, nty, ntx, height, width, config, bg_depth, offsets,
+                                          packed, audit=True)
+    return gspace, int(skipped)
+
+
+def _composite_bwd_cuda(fields, pair_splat, tile_base, tile_phi, tile_span, used, grad_base, d_out, tchk, g_pad,
+                        nty, ntx, height, width, config, bg_depth, offsets, packed, audit=False):
+    global launches_bwd, launches_bwd_depth, launches_bwd_strided
     mapping = tile_mapping(config, offsets)
     depth = config.depth_test
     _require_contiguous(fields=fields, pair_splat=pair_splat, tile_base=tile_base, tile_phi=tile_phi,
@@ -688,6 +841,9 @@ def composite_bwd(
     # Zero-filled once: chunks the forward never walked are never touched.
     rows, dt = (G_ROWS_PACKED, torch.int32) if packed else (N_SUMS, torch.float32)
     gspace = torch.zeros((rows, g_pad), dtype=dt, device=dev)
+    # Longest walk first: one sort of the (T,) stop counters.
+    order = torch.argsort(used, descending=True).to(torch.int32)
+    skipped = torch.zeros((1,), dtype=torch.int32, device=dev) if audit else None
     lib = _library_bwd()
     with torch.cuda.device(dev):
         err = lib.gsplat_composite_bwd(
@@ -697,14 +853,15 @@ def composite_bwd(
             used.data_ptr(), grad_base.data_ptr(), d_out.data_ptr(), tchk.data_ptr(),
             gspace.data_ptr(), g_pad,
             nty, ntx, height, width, config.chunk, max_chunks(config),
-            config.max_alpha, *mapping, torch.cuda.current_stream().cuda_stream,
+            config.max_alpha, *mapping, order.data_ptr(), None if skipped is None else skipped.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"gsplat_composite_bwd launch failed: CUDA error {err}")
     launches_bwd += 1
     launches_bwd_depth += int(depth)
     launches_bwd_strided += int(mapping != (1, 1, 0, 0))
-    return gspace
+    return gspace, skipped
 
 
 class CompositeSplats(torch.autograd.Function):

@@ -108,7 +108,8 @@ def device_from_calibration(calib: dict, base: dict = H100) -> dict:
 
 def compositor_bound(pixel_updates: float, nbytes: float, slots: int, n_expf: int, flops: int,
                      device: dict = H100) -> dict:
-    """Bounds of ``pixel_updates`` pixel updates (pairs walked × 1024) that
+    """Bounds of ``pixel_updates`` pixel updates (those with α ≠ 0 of the
+    walked pairs, ``live_pixel_updates``, or pairs walked × 1024) that
     also move ``nbytes``: ``issue_ms`` = max(slots / issue rate, expf / expf
     rate, bytes / HBM) at the measured rates; ``issue_datasheet_ms`` the same
     at the data sheet's rates; ``flops_datasheet_ms`` = max(flops / 67
@@ -149,13 +150,17 @@ def speed_of_light(
     device: dict = H100,
     pairs_walked: int = None,
     mode: str = "beauty",
+    live_updates: int = None,
 ) -> dict:
     """Per-stage floor milliseconds of one frame (``fwd_only``) or one
     training step's render, forward and backward.
 
     ``pair_budget``: the static pair count the binning's passes walk (the
     tuned budget).  ``pairs_walked``: the pairs the compositors walk before
-    the early stop (this frame's data; the budget when not given).  ``mode``:
+    the early stop (this frame's data; the budget when not given).
+    ``live_updates``: the (pair, pixel) updates with α ≠ 0 among them
+    (``ops/kernels/composite.py`` ``live_pixel_updates``), which price the
+    compositors; every pixel of every walked pair when not given.  ``mode``:
     ``"beauty"``, ``"depth"`` (11-row float32 payload and the depth test) or
     ``"wire"``.  Returns ``{"sol_ms", "stages"}``; ``stages`` maps a stage to
     ``(floor_ms, bounding unit)``.
@@ -166,6 +171,7 @@ def speed_of_light(
     """
     n, p = float(n_splats), float(pair_budget)
     walked = p if pairs_walked is None else float(pairs_walked)
+    updates = walked * 1024 if live_updates is None else float(live_updates)
     bw = device["hbm_bw"]
     issue = device["f32_issue_rate"]
     sort_rate = device["sort_rate"]
@@ -189,14 +195,14 @@ def speed_of_light(
     if packed:
         add("pack payload", (10 + 8) * 4 * n / bw, "bytes")
     fwd_bytes = pay_rows * 4 * n + 4 * p + pixels * 16
-    fb = compositor_bound(walked * 1024, fwd_bytes, FWD_SLOTS[mode], FWD_EXPF[mode], FWD_FLOPS[mode], device)
+    fb = compositor_bound(updates, fwd_bytes, FWD_SLOTS[mode], FWD_EXPF[mode], FWD_FLOPS[mode], device)
     add("fwd kernel", fb["issue_ms"] / ms, f"issue slots ({fb['issue_bound_by']})")
     if not fwd_only:
         if mode == "wire":
             raise ValueError("wireframe mode is forward-only")
         add("gradient map (2 scans + scatter)", 3 * 2 * 4 * p / bw, "bytes")
         bwd_bytes = fwd_bytes + pixels * 16 + 9 * 4 * p
-        bb = compositor_bound(walked * 1024, bwd_bytes, BWD_SLOTS[mode], 1, BWD_FLOPS[mode], device)
+        bb = compositor_bound(updates, bwd_bytes, BWD_SLOTS[mode], 1, BWD_FLOPS[mode], device)
         add("bwd kernel", bb["issue_ms"] / ms, f"issue slots ({bb['issue_bound_by']})")
         add("segment sum", (9 * 4 * p + 4 * p + 2 * 4 * n + 9 * 4 * n) / bw, "bytes")
         add("combine+proj bwd", max(2 * n * PARAM_BYTES / bw, n * PROJ_OPS_PER_SPLAT / issue),
@@ -208,9 +214,9 @@ def speed_of_light(
 
 
 def report(n, width, height, pair_budget, achieved_ms, fwd_only=False, device: dict = H100,
-           pairs_walked: int = None, mode: str = "beauty"):
+           pairs_walked: int = None, mode: str = "beauty", live_updates: int = None):
     """Floor, achieved, fraction."""
-    m = speed_of_light(n, width, height, pair_budget, fwd_only, device, pairs_walked, mode)
+    m = speed_of_light(n, width, height, pair_budget, fwd_only, device, pairs_walked, mode, live_updates)
     return {
         "sol_ms": m["sol_ms"],
         "sol_fraction": m["sol_ms"] / achieved_ms,

@@ -282,3 +282,104 @@ def test_strided_tile_mapping_matches_plain(card, strides, offsets):
         else:
             assert float((a[r] - w[r]).abs().max()) <= 1e-5 * scale, r
     assert float(img[..., 3].max()) > 0.5 and float(w.abs().max()) > 0.0
+
+
+def test_scan_back_to_back_calls_after_poisoned_scratch(card):
+    """200 calls on one stream with no host wait, kind and length
+    alternating, the scratch poisoned with random words before them and
+    every 25 calls: each bit-equal to its plain version, one launch each."""
+    g = torch.Generator(device=card).manual_seed(8)
+    lengths = (1, 4095, 4096, 4097, 1 << 20, 2_359_296, (1 << 24) + 3)
+    inputs = {}
+    for kind in kscan.KINDS:
+        for n in lengths:
+            hi, lo = (40, 0) if kind == "add" else (2**31 - 1, -(2**31))
+            inputs[(kind, n)] = torch.randint(lo, hi, (n,), generator=g, device=card,
+                                              dtype=torch.int64).to(torch.int32)
+    want = {key: kscan.scan_i32_plain(x, key[0]) for key, x in inputs.items()}
+    kscan.scan_i32(inputs[("add", lengths[-1])], "add")
+    before = kscan.launches
+    got = []
+    for i in range(200):
+        if i % 25 == 0:
+            for buf in kscan._scratch.values():
+                buf.copy_(torch.randint(-(2**63), 2**63 - 1, buf.shape, generator=g, device=card,
+                                        dtype=torch.int64))
+        key = (kscan.KINDS[i % 2], lengths[(i // 2) % len(lengths)])
+        got.append((key, kscan.scan_i32(inputs[key], key[0])))
+    assert kscan.launches == before + 200
+    for key, out in got:
+        assert torch.equal(out, want[key]), key
+
+
+def test_scan_refuses_cuda_graph_capture(card):
+    """A replayed launch would reuse its epoch, so the scan raises under
+    stream capture, launches nothing, and works again after it."""
+    x = torch.arange(10_000, dtype=torch.int32, device=card)
+    kscan.scan_i32(x, "add")
+    before = kscan.launches
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            kscan.scan_i32(x, "add")
+    assert kscan.launches == before
+    assert torch.equal(kscan.scan_i32(x, "max"), x)
+
+
+@pytest.mark.parametrize("case", ["float32", "packed", "depth", "strided"])
+def test_backward_reach_test_audit_and_determinism(card, case):
+    """The reach test skips no pixel with α != 0 (the audit instance counts
+    0 and writes the same gradient space), two runs are bit-equal, and the
+    rows agree with the plain version."""
+    import dataclasses
+
+    payload = "packed" if case in ("packed", "strided") else "float32"
+    fwd, b, d_out, g_pad = _backward_case(card, payload, 1e-3)
+    bgd, offsets = None, (0, 0)
+    if case == "depth":
+        from gsplat_tpu_torch.ops.projection import project_splats
+        from gsplat_tpu_torch.ops.rasterize_ref import sanitize_projected
+        from gsplat_tpu_torch.ops.rasterize_tiles import sort_by_depth
+
+        g = torch.Generator(device=card).manual_seed(1)
+        splats = gt.random_splats(g, 5000, extent=0.8, scale_range=(0.01, 0.05), sh_scale=0.2, device=card)
+        cam = gt.make_camera([0.2, 0.4, 3.0], [0, 0, 0], 200, 120, device=card)
+        p = sort_by_depth(sanitize_projected(project_splats(splats, cam, 3, tight_footprint=True)), 15)
+        assert torch.equal(p.fields[:10], fwd[0])
+        fwd = (torch.cat([p.fields[:10], p.fields[14:15]]).contiguous(),) + fwd[1:-1] + (
+            dataclasses.replace(fwd[-1], depth_test=True),)
+        bgd = ((2.0 + 1.5 * torch.linspace(0, 1, 200, device=card)[None, :]) *
+               torch.ones((120, 1), device=card)).contiguous()
+    if case == "strided":
+        from gsplat_tpu_torch.ops import binning
+        from gsplat_tpu_torch.ops.projection import project_splats
+        from gsplat_tpu_torch.ops.rasterize_ref import quantize_payload, sanitize_projected
+        from gsplat_tpu_torch.ops.rasterize_tiles import sort_by_depth
+
+        g = torch.Generator(device=card).manual_seed(6)
+        splats = gt.random_splats(g, 20000, extent=0.8, scale_range=(0.01, 0.05), sh_scale=0.2, device=card)
+        cam = gt.make_camera([0.2, 0.4, 3.0], [0, 0, 0], 320, 704, device=card)
+        cfg = gt.RenderConfig(payload_dtype="packed", transmittance_eps=1e-3, pairs_per_splat=8.0,
+                              row_stride=2, col_stride=2)
+        p = sort_by_depth(quantize_payload(sanitize_projected(project_splats(splats, cam, 3)), cfg))
+        offsets = (1, 1)
+        b = binning.bin_splats(p, 160, 352, cfg, row_offset=1, col_offset=1, with_tiles=False, with_grad_map=True)
+        fwd = (kcomp.pack_payload(p.fields), b.pair_splat, b.tile_base, b.tile_phi, b.tile_span, 11, 5, 352, 160, cfg)
+        d_out = torch.randn((352, 160, 4), generator=g, device=card)
+        g_pad = binning.grad_pad_size(b.dest_of_exp.shape[0], 55, cfg.chunk)
+    _, used, tchk = kcomp.composite_splats(*fwd, checkpoint=True, bg_depth=bgd, offsets=offsets)
+    args = fwd[:5] + (used, b.grad_base, d_out, tchk, g_pad) + fwd[5:]
+    got = kcomp.composite_bwd(*args, bg_depth=bgd, offsets=offsets)
+    assert torch.equal(got, kcomp.composite_bwd(*args, bg_depth=bgd, offsets=offsets))
+    audited, skipped = kcomp.composite_bwd_audit(*args, bg_depth=bgd, offsets=offsets)
+    assert skipped == 0 and torch.equal(audited, got)
+    packed = payload == "packed"
+    a, w = _nine_rows(got, packed), _nine_rows(kcomp.composite_bwd_plain(*args, bg_depth=bgd, offsets=offsets),
+                                               packed)
+    for r in range(9):
+        scale = float(w[r].abs().max())
+        if packed and r in (6, 7):  # bf16 halves: one step of an 8-bit mantissa
+            assert bool(((a[r] - w[r]).abs() <= w[r].abs() * 2.0 ** -7 + 1e-5 * scale).all()), r
+        else:
+            assert float((a[r] - w[r]).abs().max()) <= 1e-5 * scale, r
+    assert float(w.abs().max()) > 0.0

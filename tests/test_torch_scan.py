@@ -59,3 +59,22 @@ def test_scan_rejects_what_the_kernel_does_not_take():
         scan_i32(torch.zeros((2, 2), dtype=torch.int32), "add")
     with pytest.raises(ValueError):
         scan_i32(torch.zeros(4, dtype=torch.int32), "mul")
+
+
+def test_scan_scratch_sizing_and_epochs(monkeypatch):
+    """The kernel's scratch: the counter and one status word a tile of 8192,
+    and a new epoch every call that never leaves [1, 2^31 - 1) (0 and the
+    top would alias the tags of another epoch); when the epochs run out,
+    every scratch is zeroed before they start again."""
+    assert tscan.scratch_words(1) == 2
+    assert tscan.scratch_words(8192) == 2 and tscan.scratch_words(8193) == 3
+    assert tscan.scratch_words((1 << 24) + 3) == 1 + 2049
+    bufs = {(0, 1): torch.full((3,), -5, dtype=torch.int64), (0, 2): torch.full((9,), 7, dtype=torch.int64)}
+    monkeypatch.setattr(tscan, "_scratch", bufs)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(tscan, "_epoch", 2**31 - 4)
+    seen = []
+    for _ in range(4):
+        seen.append(tscan._next_epoch())
+        assert all(bool((buf == 0).all()) == (seen[-1] < seen[0]) for buf in bufs.values()), seen
+    assert seen == [2**31 - 3, 2**31 - 2, 1, 2]
