@@ -10,10 +10,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
   build      compiles csrc/*.cu with nvcc (one process per source, in
              parallel) and loads the libraries.
   checks     every kernel against its plain PyTorch version on the card at
-             small and ragged shapes (scan: bit-equal at both tile shapes,
-             and in 200 back-to-back calls of alternating kind and length
-             with its scratch poisoned by random words; compositor: image
-             max|diff| < 1e-5 and equal stop counters; its checkpoint variant:
+             small and ragged shapes (scan: bit-equal at every length, in
+             200 back-to-back calls of alternating kind and length with its
+             scratch poisoned by random words, and - in a child process
+             under a timeout of its own - after two scratch growths into a
+             handed-back block that holds the next epoch's tags;
+             compositor: image max|diff| < 1e-5 and equal stop counters,
+             every forward call run twice (bit-equal) and through its audit
+             instance (no pixel with alpha != 0 in a warp its mask skipped,
+             the same image, and exactly the plain mask's kept (pair, warp)
+             couples); its checkpoint variant:
              the same image and counters bit for bit; backward compositor:
              every gradient-space row within 1e-5 of the row's max, the packed
              bf16 halves within one bf16 step - the two sides add 1024 pixels
@@ -99,8 +105,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              least time the card could take (bound, from utils/sol.py: the
              data sheet's rates; bound_measured_ms at this run's rates; the
              compositors priced on the pixel updates with alpha != 0, the
-             all-pixel bound beside); the scans' device operations a call
-             from a profiler trace; the strided rows at rank 0's inputs on the sharded path.
+             all-pixel bound beside; the forward rows with the warps a pair
+             has live, reaches and keeps); the scans' device operations a
+             call from a profiler trace; the strided rows at rank 0's inputs
+             on the sharded path.
 
 python3 chip_smoke.py --frame-digest prints only the SHA-256 of the main
 path's first frame and of its forward kernel's image and stop counters, to
@@ -238,8 +246,11 @@ def occluder(width, height):
 
 
 def compare_compositor(args, label, bgd=None, offsets=(0, 0)):
+    """The forward against its plain version (image within IMAGE_TOL, stop
+    counters equal) and its warp mask audited (audit_forward)."""
     img_k, used_k = kcomp.composite_splats(*args, bg_depth=bgd, offsets=offsets)
     torch.cuda.synchronize()
+    audit_forward(args, img_k, used_k, label, bgd, offsets)
     img_p, used_p = kcomp.composite_splats_plain(*args, bg_depth=bgd, offsets=offsets)
     torch.cuda.synchronize()
     if img_k.shape != img_p.shape or not torch.isfinite(img_k).all():
@@ -249,6 +260,31 @@ def compare_compositor(args, label, bgd=None, offsets=(0, 0)):
     if not (err < IMAGE_TOL) or not used_equal:
         fail(f"compositor {label}: max|diff| {err:.3e} (tolerance {IMAGE_TOL}), used equal: {used_equal}")
     return err, used_k
+
+
+# Forward calls audited in this process: both runs bit-equal, the audit
+# instance found no skipped pixel with α != 0 and kept exactly the plain
+# mask's (pair, warp) couples.
+AUDITED_FWD = {"two_runs": 0, "audit_instance": 0, "skipped_live_pixels": 0}
+
+
+def audit_forward(args, img, used, label, bgd=None, offsets=(0, 0)):
+    """The forward's warp mask on these inputs: a second run bit-equal to the
+    first, and the audit instance, which evaluates α in every warp the mask
+    skipped, finding no pixel with α != 0, writing the same image and stop
+    counters bit for bit, and keeping exactly the (pair, warp) couples of
+    the plain mask (kcomp.walked_pair_counts' kept_warps)."""
+    img2, used2 = kcomp.composite_splats(*args, bg_depth=bgd, offsets=offsets)
+    if not (torch.equal(img, img2) and torch.equal(used, used2)):
+        fail(f"composite_fwd {label}: two runs on the same input differ")
+    AUDITED_FWD["two_runs"] += 1
+    a_img, a_used, skipped, kept = kcomp.composite_splats_audit(*args, bg_depth=bgd, offsets=offsets)
+    plain_kept = pair_counts(args, used, bgd, offsets)["kept_warps"]
+    same = bool(torch.equal(a_img, img) and torch.equal(a_used, used))
+    if skipped != 0 or not same or kept != plain_kept:
+        fail(f"composite_fwd {label}: the warp mask skipped {skipped} pixels with alpha != 0, kept {kept} "
+             f"(pair, warp) couples against the plain mask's {plain_kept} (audit output bit-equal: {same})")
+    AUDITED_FWD["audit_instance"] += 1
 
 
 def zero_counters():
@@ -615,6 +651,66 @@ def check_scan_stress(g):
     return len(calls)
 
 
+# The poisoned-growth check runs in a child process under this limit: with
+# a scratch that trusts what the allocator hands back, the look-back can
+# spin forever, and a hang must end as a failed check.
+SCAN_GROWTH_TIMEOUT_S = 180
+
+
+def scan_growth_probe():
+    """In a fresh process: twice (kind add, then max) an int64 block of the
+    size the scan's next scratch growth requests is filled with the next
+    epoch's tags - the tile counter (epoch << 32) | 5 and every status word
+    (2 * epoch) << 32, an aggregate of 0 ready to be read - and freed, then a
+    scan forces the growth.  The caching allocator hands the block back
+    (checked by its address); the result must be bit-equal to torch.cumsum /
+    torch.cummax.  Prints one JSON line; exit 1 if a result differs."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(13)
+    dev = torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    out = []
+    for kind, n in (("add", 5 * kscan.TILE + 3), ("max", None)):
+        held = kscan._scratch.get((dev, stream))
+        if n is None:  # a length whose scratch needs twice what is held
+            n = (2 * held.numel() - 1) * kscan.TILE
+        want_words = max(kscan.scratch_words(n), 0 if held is None else 2 * held.numel())
+        x = scan_input(kind, n, g)
+        want = (torch.cumsum(x, 0, dtype=torch.int32) if kind == "add" else torch.cummax(x, 0).values)
+        e = kscan._epoch + 1  # the epoch of the next call
+        # guards on both sides, so that the freed block cannot merge with
+        # free neighbours and go to another request of the call first
+        guard0 = torch.empty((64,), dtype=torch.int64, device=DEV)
+        poison = torch.full((want_words,), (2 * e) << 32, dtype=torch.int64, device=DEV)
+        guard1 = torch.empty((64,), dtype=torch.int64, device=DEV)
+        poison[0] = (e << 32) | 5
+        ptr = poison.data_ptr()
+        torch.cuda.synchronize()
+        del poison
+        got = kscan.scan_i32(x, kind)
+        torch.cuda.synchronize()
+        del guard0, guard1
+        buf = kscan._scratch[(dev, stream)]
+        out.append({"kind": kind, "length": n, "scratch_words": buf.numel(), "epoch": e,
+                    "block_handed_back": buf.data_ptr() == ptr, "bit_equal": bool(torch.equal(got, want))})
+    print(json.dumps(out), flush=True)
+    return 0 if all(r["bit_equal"] and r["block_handed_back"] for r in out) else 1
+
+
+def check_scan_growth():
+    """scan_growth_probe in a child process under SCAN_GROWTH_TIMEOUT_S."""
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.scan_growth_probe())"
+    try:
+        res = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent,
+                             capture_output=True, text=True, timeout=SCAN_GROWTH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"scan growth over a poisoned block: no result within {SCAN_GROWTH_TIMEOUT_S} s (a hang)")
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or not lines:
+        fail(f"scan growth over a poisoned block: exit {res.returncode}, {res.stdout[-2000:]} {res.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
 def check_scan_refuses_capture():
     """Under CUDA graph capture the scan raises and launches nothing (a
     replay would reuse the launch's epoch)."""
@@ -655,6 +751,7 @@ def phase_checks():
                     fail(f"scan_i32[{kind}] differs on a misaligned view at length {n - 1}")
             scan_cases += 1
     stress_calls = check_scan_stress(g)
+    scan_growth = check_scan_growth()
     check_scan_refuses_capture()
 
     splats = bench_scene(100_000, seed=2)
@@ -801,13 +898,14 @@ def phase_checks():
     bwd["bwd_worst_rel_err"] = max(bwd["bwd_worst_rel_err"], strided_bwd)
     probe = check_probes()
     emit("checks", scan_cases=scan_cases, scan="bit-equal", scan_stress_calls=stress_calls,
-         scan_stress="bit-equal, scratch poisoned every 25 calls", compositor_cases=comp_cases,
+         scan_stress="bit-equal, scratch poisoned every 25 calls", scan_growth_over_next_epoch_tags=scan_growth,
+         compositor_cases=comp_cases,
          depth_test_cases=depth_cases, wireframe_cases=wire_cases, strided_cases=strided_cases,
          strided_forward="bit-equal (and its checkpoint variant)", strided_bwd_worst_row_rel_err=strided_bwd,
          probes=probe,
          compositor_max_abs_err=worst, tolerance=IMAGE_TOL, tiles_stopped_early=stops, used="equal",
          backward_cases=bwd["cases"], checkpoint_variant="image and used bit-equal",
-         backward_audited=dict(AUDITED, skipped_live_pixels=0),
+         backward_audited=dict(AUDITED, skipped_live_pixels=0), forward_audited=dict(AUDITED_FWD),
          checkpoint_max_abs_err=bwd["checkpoint_max_abs_err"],
          composite_bwd_worst_row_rel_err=bwd["bwd_worst_rel_err"], composite_bwd_row_tolerance=GRAD_ROW_TOL,
          segsum_worst_row_rel_err=bwd["segsum_worst_rel_err"], segsum_row_tolerance=SEGSUM_TOL,
@@ -1330,21 +1428,30 @@ def device_events(path):
             if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
+# Traces a traced_calls may take: a session whose trace comes back with no
+# device event at all (the tracer's failure, seen once on the card) is taken
+# again; what a trace that has events shows is never retried.
+TRACE_ATTEMPTS = 3
+
+
 def traced_calls(fn, calls):
     """fn() `calls` times under torch.profiler: the device operations one
     call enqueues and their device microseconds a call, from the trace."""
     fn()
     torch.cuda.synchronize()
-    start_trace(TRACE_DIR)
-    for _ in range(calls):
-        fn()
-    torch.cuda.synchronize()
-    events = device_events(stop_trace())
-    if not events:
-        fail("the profiler trace holds no device events")
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        start_trace(TRACE_DIR)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        events = device_events(stop_trace())
+        if events:
+            break
+    else:
+        fail(f"the profiler trace holds no device events ({TRACE_ATTEMPTS} sessions)")
     return {"device_ops_per_call": len(events) / calls,
             "device_us_per_call": sum(d for _, d in events) / calls,
-            "device_op_names": sorted({n[:60] for n, _ in events})}
+            "device_op_names": sorted({n[:60] for n, _ in events}), "trace_sessions": attempt}
 
 
 def phase_profile(label, units):
@@ -1424,6 +1531,8 @@ def compositor_row(name, source, replaces, launches, err, ms, plain_ms, counts, 
                live_share=counts["live_pixel_updates"] / (pairs * 1024),
                live_warps_per_pair=counts["live_warps"] / pairs, reach_warps_per_pair=counts["reach_warps"] / pairs,
                bytes=nbytes, **extra)
+    if kind == "fwd":  # what the forward's mask keeps (the depth kill included)
+        row["kept_warps_per_pair"] = counts["kept_warps"] / pairs
     return row
 
 
@@ -1640,7 +1749,7 @@ def phase_kernels(splats, cam, cfg, counts, train_counts):
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         row.update(bytes_bounds(8.0 * length))
         row["library_ms"] = library_ms
-        row.update(device_ops_per_call=traced["device_ops_per_call"],
+        row.update(device_ops_per_call=traced["device_ops_per_call"], trace_sessions=traced["trace_sessions"],
                    device_us_per_call=traced["device_us_per_call"], device_ops=traced["device_op_names"],
                    library_device_ops_per_call=lib_traced["device_ops_per_call"],
                    library_device_us_per_call=lib_traced["device_us_per_call"])

@@ -57,11 +57,10 @@
 // forward's; T is the forward's own product sequence.
 //
 // The reach test.  A warp owns a rectangle of 128 pixels, 8 rows by 16
-// columns, a thread 4 of them in one column (of the 4 x 32, 8 x 16 and 16 x
-// 8 rectangles measured, the last two keep the fewest warps a pair and ran
-// within 2 % of each other; PERF.md).  When a chunk's payload is read, each
+// columns, a thread 4 of them in one column (composite_common.cuh, shared
+// with the forward).  When a chunk's payload is read, each
 // pair gets a mask of the warps whose rectangle it can reach
-// (composite_common.cuh pair_reaches; all warps in soft mode).  A warp
+// (composite_common.cuh reach_bits; all warps in soft mode).  A warp
 // outside it skips the pair in pass 1 (T is
 // left as it is, which is exact: T * (1 - 0) = T), in the replay (alpha =
 // 0) and in the walk back: it adds exact zeros, so skipping changes no value.
@@ -108,7 +107,6 @@ namespace {
 using namespace gsplat;
 
 constexpr int SUB = 8;              // pairs per sub-block of the replay
-constexpr int WARPS = THREADS / 32;
 constexpr int NSUMS = 9;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -129,16 +127,6 @@ __device__ __forceinline__ void halve(float (&out)[NSUMS], const float (&a)[NSUM
         out[r] = keep + __shfl_xor_sync(FULL, send, mask);
     }
 }
-
-// A warp's rectangle of the tile: WARP_W columns by WARP_H rows, warps
-// numbered row by row.
-constexpr int WARP_W = 16;
-constexpr int WARP_H = 32 * PIX / WARP_W;
-constexpr int WARPS_PER_ROW = TILE / WARP_W;
-static_assert(WARPS_PER_ROW * (TILE / WARP_H) == WARPS, "the warps' rectangles cover the tile");
-
-__device__ __forceinline__ int warp_x0(int warp) { return (warp % WARPS_PER_ROW) * WARP_W; }
-__device__ __forceinline__ int warp_y0(int warp) { return (warp / WARPS_PER_ROW) * WARP_H; }
 
 template <bool PACKED, bool SOFT, bool DEPTH, bool AUDIT>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -224,22 +212,9 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
         const int p_lo = lo - c0;
         const int p_hi = hi - c0;
         // Every pair's warp mask.
-        for (int p = p_lo + tid; p < p_hi; p += THREADS) {
-            unsigned bits = (1u << WARPS) - 1u;
-            if (!SOFT) {
-                const Pair q = read_pair<PACKED, DEPTH>(s_pay, chunk, p);
-                bits = 0u;
-#pragma unroll
-                for (int w = 0; w < WARPS; ++w) {
-                    const float xc = (float)(gx0 + warp_x0(w)) + 0.5f * (float)WARP_W;
-                    const float yc = (float)(gy0 + warp_y0(w)) + 0.5f * (float)WARP_H;
-                    if (pair_reaches(q, xc, yc, 0.5f * (float)(WARP_W - 1), 0.5f * (float)(WARP_H - 1)))
-                        bits |= 1u << w;
-                }
-            }
-            s_reach[p] = (int)bits;
-        }
-        __syncthreads();
+        store_reach<PACKED, DEPTH>(s_pay, chunk, p_lo, p_hi, s_reach, [&](const Pair& q) {
+            return SOFT ? ALL_WARPS : reach_bits(q, gx0, gy0, QUAD_REACH);
+        });
         const int sb0 = p_lo / SUB;
         const int sb1 = (p_hi - 1) / SUB;
 

@@ -18,6 +18,28 @@ constexpr int TILE = 32;
 constexpr int TILE_PIXELS = TILE * TILE;
 constexpr int THREADS = 256;
 constexpr int PIX = 4;  // pixels per thread
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned ALL_WARPS = (1u << WARPS) - 1u;
+
+// A warp's rectangle of the tile: WARP_W columns by WARP_H rows, warps
+// numbered row by row.  Lane L of a warp owns column warp_x0 + L % WARP_W
+// and the PIX rows warp_y0 + PIX * (L / WARP_W) + k: half a warp covers 16
+// neighbouring pixels of a row.  Of the 4 x 32, 8 x 16 and 16 x 8
+// rectangles measured for the backward, the last two keep the fewest warps
+// a pair and ran within 2 % of each other (PERF.md).
+// ops/kernels/composite.py warp_rects() mirrors this.
+constexpr int WARP_W = 16;
+constexpr int WARP_H = 32 * PIX / WARP_W;
+constexpr int WARPS_PER_ROW = TILE / WARP_W;
+static_assert(WARPS_PER_ROW * (TILE / WARP_H) == WARPS, "the warps' rectangles cover the tile");
+
+__device__ __forceinline__ int warp_x0(int warp) { return (warp % WARPS_PER_ROW) * WARP_W; }
+__device__ __forceinline__ int warp_y0(int warp) { return (warp / WARPS_PER_ROW) * WARP_H; }
+
+// The largest |q| on either axis at which the Gaussian's hard cutoff can
+// leave alpha != 0 (q^2 <= 4), plus 1e-4: the reach test's limit outside
+// band mode.
+constexpr float QUAD_REACH = 2.0001f;
 
 // Scene depth of a pixel beyond the image's edge: +inf never kills, so such a
 // pixel's early-stop vote is the same as without the depth test.
@@ -109,16 +131,18 @@ __device__ __forceinline__ float pixel_alpha(const Pair& q, float dxax, float dx
 
 // The reach test: can a pair's hard-cutoff alpha be non-zero at any pixel
 // centre of a rectangle?  The rectangle's centres span [xc - hw, xc + hw] x
-// [yc - hh, yc + hh] (global pixel coordinates).  alpha != 0 needs |qx| <= 2
-// and |qy| <= 2, and qx = ax*dx + ay*dy is affine in the pixel, so over the
+// [yc - hh, yc + hh] (global pixel coordinates).  alpha != 0 needs |qx| <= R
+// and |qy| <= R, with R = 2 for the Gaussian's cutoff (and 2 + the band's
+// half-width in band mode, fwd_reach_bits in composite_fwd.cu); `extent` is
+// R + 1e-4.  qx = ax*dx + ay*dy is affine in the pixel, so over the
 // rectangle it ranges over qx(centre) +- (|ax|*hw + |ay|*hh), and likewise
-// qy: the test drops the rectangle only when one range misses [-2, 2].  It
+// qy: the test drops the rectangle only when one range misses [-R, R].  It
 // never divides, so a singular or rotated quad basis is handled like any
 // other.  The margin covers rounding: the kernels compute qx at a pixel with
 // an error below 3 ulp of s = |ax*dx| + |ay*dy| (dx, dy, the products and the
 // sum each rounded once), this test computes qx(centre) with the same bound,
-// and |qx| <= 2 + that error is all a live pixel can show (a float above 2
-// squares to a float above 4).  So the limit is 2 + h + 1e-5*(s + h) +
+// and |qx| <= R + that error is all a live pixel can show (a float above 2
+// squares to a float above 4).  So the limit is R + h + 1e-5*(s + h) +
 // 1e-4, about 170 ulp of s beyond what any live pixel reaches.  A payload
 // with an infinite or NaN entry keeps every rectangle (and so does any NaN
 // the arithmetic meets: a comparison drops only when it is true).  A
@@ -127,7 +151,8 @@ __device__ __forceinline__ float pixel_alpha(const Pair& q, float dxax, float dx
 // term here; soft mode has no cutoff and never calls this.
 // ops/kernels/composite.py reach_mask_plain is the same arithmetic in
 // PyTorch.
-__device__ __forceinline__ bool pair_reaches(const Pair& q, float xc, float yc, float hw, float hh) {
+__device__ __forceinline__ bool pair_reaches(const Pair& q, float xc, float yc, float hw, float hh,
+                                             float extent) {
     if (!(isfinite(q.cx) && isfinite(q.cy) && isfinite(q.ax) && isfinite(q.ay) && isfinite(q.bx) &&
           isfinite(q.by)))
         return true;
@@ -140,14 +165,45 @@ __device__ __forceinline__ bool pair_reaches(const Pair& q, float xc, float yc, 
     const float hy = abx * hw + aby * hh;
     const float sx = aax * (fabsf(dxc) + hw) + aay * (fabsf(dyc) + hh);
     const float sy = abx * (fabsf(dxc) + hw) + aby * (fabsf(dyc) + hh);
-    const float lx = 2.0001f + hx + 1e-5f * (sx + hx);
-    const float ly = 2.0001f + hy + 1e-5f * (sy + hy);
+    const float lx = extent + hx + 1e-5f * (sx + hx);
+    const float ly = extent + hy + 1e-5f * (sy + hy);
     return !(fabsf(qx) > lx || fabsf(qy) > ly);
 }
 
+// The warps of the tile whose first pixel is (gx0, gy0) (global) that pair
+// q can reach (pair_reaches over each warp's rectangle), as bits.
+__device__ __forceinline__ unsigned reach_bits(const Pair& q, int gx0, int gy0, float extent) {
+    unsigned bits = 0u;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+        const float xc = (float)(gx0 + warp_x0(w)) + 0.5f * (float)WARP_W;
+        const float yc = (float)(gy0 + warp_y0(w)) + 0.5f * (float)WARP_H;
+        if (pair_reaches(q, xc, yc, 0.5f * (float)(WARP_W - 1), 0.5f * (float)(WARP_H - 1), extent))
+            bits |= 1u << w;
+    }
+    return bits;
+}
+
+// Every pair's warp mask for chunk positions [p_lo, p_hi), one thread a
+// pair: s_reach[p] = mask(pair p).  Both compositing kernels call this
+// after load_chunk, each with its own mask.  Ends with a barrier.
+template <bool PACKED, bool DEPTH, class Mask>
+__device__ __forceinline__ void store_reach(const int* s_pay, int chunk, int p_lo, int p_hi, int* s_reach,
+                                            Mask mask) {
+    for (int p = p_lo + (int)threadIdx.x; p < p_hi; p += THREADS)
+        s_reach[p] = (int)mask(read_pair<PACKED, DEPTH>(s_pay, chunk, p));
+    __syncthreads();
+}
+
+// The wireframe band's half-widths in quad units, per pair: wq1 = line_px *
+// |A| and wq2 = line_px * |B| (the x and y of the result).
+__device__ __forceinline__ float2 band_half_widths(const Pair& q, float line_px) {
+    return make_float2(line_px * sqrtf(q.ax * q.ax + q.ay * q.ay), line_px * sqrtf(q.bx * q.bx + q.by * q.by));
+}
+
 // Wireframe mode: an opaque band on the quad's +-2 edge replaces the Gaussian
-// falloff (no max_alpha clamp, no depth test).  wq1 = line_px * |A| and
-// wq2 = line_px * |B| are the band's half-widths in quad units, per pair.
+// falloff (no max_alpha clamp, no depth test).  wq1 and wq2 are the band's
+// half-widths (band_half_widths).
 __device__ __forceinline__ float wire_alpha(const Pair& q, float dxax, float dxbx, float dy,
                                             float wq1, float wq2) {
     const float qx = dxax + dy * q.ay;

@@ -23,13 +23,21 @@
 // epoch is a number the wrapper passes anew with every call: a word left by
 // an earlier call, or any other word, reads as "not ready".  The tile
 // counter carries the epoch in its high half too: a block that finds an old
-// epoch there restarts the count at this call's.  So the scratch
-// needs no memset launch and may hold anything when a call starts (a random
-// word matches this call's tags with probability 2^-31).  The price: a
-// launch must never run twice with one epoch, so it cannot be replayed from
-// a CUDA graph (the wrapper refuses a stream capture), and once the 2^31 - 2
-// epochs are spent the wrapper zeroes the scratch (tags of epoch 0, which no
-// call has) before it starts them again.
+// epoch there restarts the count at this call's.  So no call needs a memset
+// launch, provided no word of the scratch carries a tag of this or a later
+// epoch when the call starts.  Words left by earlier calls never do (epochs
+// only grow), and the wrapper allocates and grows the scratch zeroed (the
+// tags of epoch 0, which no call has).  Zeroing at allocation is required,
+// not optional: a block the caching allocator hands back holds the
+// process's earlier data, and small integers read as 64-bit words carry
+// exactly the small epochs a young process uses next.  A status word with
+// this call's tag is read as a ready prefix (a wrong sum); a counter with
+// this call's epoch skips the restart, so tiles are drawn from a stale
+// count, some are never scanned and the look-back may spin forever.  The
+// price of the design: a launch must never run twice with one epoch, so it
+// cannot be replayed from a CUDA graph (the wrapper refuses a stream
+// capture), and once the 2^31 - 2 epochs are spent the wrapper zeroes the
+// scratch before it starts them again.
 //
 // What bounds it: bytes, 8 per element (read once, write once), which this
 // design moves, plus 8 bytes of status a tile.  At L = 1M that is 2.4 us at
@@ -249,8 +257,9 @@ extern "C" int gsplat_scan_tile() { return TILE; }
 
 // Inclusive scan of in[0..n) into out[0..n) in one launch.  `scratch`: 1 +
 // ceil(n / gsplat_scan_tile()) 64-bit words that no other call uses at
-// the same time (any contents).  `epoch`: in [1, 2^31 - 1), different from
-// that of every earlier call on this scratch since it last held only zeros.
+// the same time, zeroed when allocated and then written only by this
+// entry.  `epoch`: in [1, 2^31 - 1), greater than that of every earlier
+// call on this scratch since it last held only zeros.
 // kind: 0 = add, 1 = max.
 extern "C" int gsplat_scan_i32(const void* in, void* out, void* scratch, long long n, int kind,
                                unsigned epoch, void* stream) {

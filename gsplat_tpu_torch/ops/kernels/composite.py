@@ -4,13 +4,19 @@ pair segments, its backward, and the differentiable function built on both.
 ``composite_splats`` replaces the forward half of the TPU kernel
 ``gsplat_tpu/ops/pallas/composite.py`` (``_fwd_kernel``, reached through
 ``composite_splats_pallas``) with the hand-written CUDA kernel in
-``csrc/composite_fwd.cu``: one block per 32×32 tile, 256 threads × 4 pixels,
-the tile's segment walked in ``config.chunk`` steps with a block-wide vote for
-the early stop.  The payload gather is part of the function — the kernel and
-the plain version read ``fields[:, pair_splat[j]]`` themselves — so the
-``(rows, P_pad)`` pair payload the TPU path materialises never exists here.
-With ``checkpoint=True`` the kernel also writes every pixel's transmittance at
-the top of each chunk it walks (``fwd_chk_call`` of the JAX package).
+``csrc/composite_fwd.cu``: one block per 32×32 tile, 8 warps each owning an
+8×16 rectangle (4 pixels a thread), the tile's segment walked in
+``config.chunk`` steps with a block-wide vote for the early stop.  A warp
+skips every pair whose update would add exact zeros to its rectangle (the
+forward's mask: the reach test, the band's reach in wireframe mode, the
+scene in front in depth mode; never a pair with a non-finite colour;
+:func:`reach_mask_plain` its plain twin), so the image does not change;
+:func:`composite_splats_audit` runs the instance that checks that on the
+card.  The payload gather is part of the function — the kernel and the plain
+version read ``fields[:, pair_splat[j]]`` themselves — so the ``(rows,
+P_pad)`` pair payload the TPU path materialises never exists here.  With
+``checkpoint=True`` the kernel also writes every pixel's transmittance at the
+top of each chunk it walks (``fwd_chk_call`` of the JAX package).
 
 ``composite_bwd`` replaces ``_bwd_kernel`` with ``csrc/composite_bwd.cu``: per
 tile a reverse walk of the chunks the forward walked, α recomputed by the
@@ -102,7 +108,7 @@ def _library():
         lib.gsplat_composite_fwd.argtypes = [
             p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, p, ctypes.c_float,
-            p, p, p, p, p, p, p,
+            p, p, p, p, p, p, p, p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_float,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p,
@@ -313,9 +319,7 @@ def _pair_alpha(geo, op, viewz, px, py, bgd, config, mode, max_alpha):
     qx = dx * col(geo[2]) + dy * col(geo[3])
     qy = dx * col(geo[4]) + dy * col(geo[5])
     if mode == MODE_WIRE:
-        line_px = config.line_px
-        wq1 = line_px * torch.sqrt(geo[2] * geo[2] + geo[3] * geo[3])
-        wq2 = line_px * torch.sqrt(geo[4] * geo[4] + geo[5] * geo[5])
+        wq1, wq2 = _band_half_widths(geo, config.line_px)
         aqx, aqy = torch.abs(qx), torch.abs(qy)
         m = torch.maximum(aqx, aqy)
         wq = torch.where(aqx > aqy, col(wq1), col(wq2))
@@ -333,26 +337,32 @@ def _pair_alpha(geo, op, viewz, px, py, bgd, config, mode, max_alpha):
     return alpha, dx, dy
 
 
-# The backward kernel's warps, each a rectangle of WARP_W x WARP_H pixels of
-# the tile, numbered row by row (csrc/composite_bwd.cu).
+# The compositing kernels' warps, each a rectangle of WARP_W x WARP_H pixels
+# of the tile, numbered row by row (csrc/composite_common.cuh).
 WARPS, WARP_W, WARP_H = 8, 16, 8
+# The reach test's limit on |q| outside band mode: 2 and 1e-4 (QUAD_REACH).
+QUAD_REACH = 2.0001
 
 
 def warp_rects():
-    """The backward kernel's warp rectangles: ``(x0, y0, w, h)`` in the tile
-    for warps 0..7."""
+    """The compositing kernels' warp rectangles: ``(x0, y0, w, h)`` in the
+    tile for warps 0..7."""
     per_row = TILE // WARP_W
     return [((k % per_row) * WARP_W, (k // per_row) * WARP_H, WARP_W, WARP_H) for k in range(WARPS)]
 
 
-def reach_mask_plain(geo: torch.Tensor, gx0: torch.Tensor, gy0: torch.Tensor) -> torch.Tensor:
-    """Plain version of the backward kernel's reach test
-    (``csrc/composite_common.cuh`` ``pair_reaches``), by the same separately
-    rounded float32 operations: for B pairs with (6, B) geometry rows ``cx cy
-    ax ay bx by`` in tiles whose first pixel is at global (``gx0``, ``gy0``)
-    (B,), the (B, 8) mask of the warps whose pixel rectangle the pair can
-    reach with the hard cutoff.  A warp left out holds no pixel with α ≠ 0;
-    a pair with an infinite or NaN entry keeps every warp."""
+def reach_mask_plain(geo: torch.Tensor, gx0: torch.Tensor, gy0: torch.Tensor, line_px=None) -> torch.Tensor:
+    """Plain version of the kernels' reach test (``csrc/composite_common.cuh``
+    ``reach_bits``), by the same separately rounded float32 operations: for B
+    pairs with (6, B) geometry rows ``cx cy ax ay bx by`` in tiles whose first
+    pixel is at global (``gx0``, ``gy0``) (B,), the (B, 8) mask of the warps
+    whose pixel rectangle the pair can reach with the hard cutoff.  A warp
+    left out holds no pixel with α ≠ 0; a pair with an infinite or NaN entry
+    keeps every warp.  This is the backward's mask.  ``line_px``, the band
+    test's half-width in pixels, widens the limit on |q| from 2 to 2 +
+    max(wq1, wq2) (wireframe mode, forward only: its α = 1 needs
+    |max(|qx|, |qy|) − 2| ≤ wq).  :func:`fwd_mask_plain` adds the forward's
+    other rules."""
     f32 = torch.float32
     cx, cy, ax, ay, bx, by = (r[:, None] for r in geo)
     rects = warp_rects()
@@ -371,10 +381,46 @@ def reach_mask_plain(geo: torch.Tensor, gx0: torch.Tensor, gy0: torch.Tensor) ->
     hy = abx * hw + aby * hh
     sx = aax * (dxc.abs() + hw) + aay * (dyc.abs() + hh)
     sy = abx * (dxc.abs() + hw) + aby * (dyc.abs() + hh)
-    lx = 2.0001 + hx + 1e-5 * (sx + hx)
-    ly = 2.0001 + hy + 1e-5 * (sy + hy)
+    extent = QUAD_REACH
+    if line_px is not None:
+        wq1, wq2 = _band_half_widths(geo, line_px)
+        extent = (QUAD_REACH + torch.fmax(wq1, wq2))[:, None]
+    lx = extent + hx + 1e-5 * (sx + hx)
+    ly = extent + hy + 1e-5 * (sy + hy)
     finite = torch.isfinite(geo).all(dim=0)[:, None]
     return finite.logical_not() | ~((qx.abs() > lx) | (qy.abs() > ly))
+
+
+def _band_half_widths(geo, line_px):
+    """The band test's half-widths in quad units, (B,) each: line_px·|A| and
+    line_px·|B| by the kernels' operations."""
+    return (line_px * torch.sqrt(geo[2] * geo[2] + geo[3] * geo[3]),
+            line_px * torch.sqrt(geo[4] * geo[4] + geo[5] * geo[5]))
+
+
+def warp_zmax(bgd_tiles: torch.Tensor) -> torch.Tensor:
+    """(T, 32, 32) scene depth → (T, 8): each warp rectangle's largest
+    non-NaN depth (−inf where all are NaN), as the forward computes it."""
+    d = torch.where(torch.isnan(bgd_tiles), float("-inf"), bgd_tiles)
+    return torch.stack([d[:, y0:y0 + h, x0:x0 + w].amax(dim=(1, 2)) for x0, y0, w, h in warp_rects()], dim=1)
+
+
+def fwd_mask_plain(geo, color, viewz, gx0, gy0, config, zmax=None) -> torch.Tensor:
+    """The forward kernel's (B, 8) warp mask (``fwd_reach_bits`` in
+    ``csrc/composite_fwd.cu``) for B pairs with (6, B) geometry rows, (3, B)
+    colour rows and (B,) view-z: the reach test with the mode's limit (every
+    warp with the soft cutoff), in depth mode less the warps whose largest
+    scene depth ``zmax`` (B, 8, :func:`warp_zmax`) lies in front of the
+    splat's view-z; every warp for a pair with a non-finite colour, whose
+    skipped update would add 0·inf = NaN."""
+    mode = kernel_mode(config)
+    if config.soft_cutoff and mode != MODE_WIRE:
+        keep = torch.ones((geo.shape[1], WARPS), dtype=torch.bool, device=geo.device)
+    else:
+        keep = reach_mask_plain(geo, gx0, gy0, config.line_px if mode == MODE_WIRE else None)
+    if mode == MODE_DEPTH:
+        keep = keep & ~(viewz[:, None] > zmax)
+    return keep | ~torch.isfinite(color).all(dim=0)[:, None]
 
 
 def walked_pair_counts(fields, pair_splat, tile_base, tile_phi, used, nty, ntx, config, bg_depth=None,
@@ -385,16 +431,19 @@ def walked_pair_counts(fields, pair_splat, tile_base, tile_phi, used, nty, ntx, 
     (the band test in wireframe mode, the depth test with
     ``config.depth_test``, every pixel with the soft cutoff, which has no
     hard zero); ``live_warps``, the (pair, warp) couples with a pixel α ≠ 0
-    in the warp's rectangle; ``reach_warps``, those the backward's reach
-    test keeps (all eight with the soft cutoff and in wireframe mode, which
-    have none).  Runs in batches of ``batch`` pairs on the inputs' device."""
+    in the warp's rectangle; ``reach_warps``, those the reach test keeps
+    (:func:`reach_mask_plain`: the backward's mask; in wireframe mode the
+    band's wider limit, which only the forward runs; all eight with the soft
+    cutoff, which has none); ``kept_warps``, those the forward's mask keeps
+    (:func:`fwd_mask_plain`: in depth mode also less the warps the scene
+    hides).  Runs in batches of ``batch`` pairs on the inputs' device."""
     packed = config.payload_dtype == "packed"
     mode = kernel_mode(config)
     dev = fields.device
     row_stride, col_stride, row_off, col_off = tile_mapping(config, offsets)
     counts = torch.clamp(used - tile_phi, min=0).long()
     total = int(counts.sum())
-    out = {"pairs": total, "live_pixel_updates": 0, "live_warps": 0, "reach_warps": 0}
+    out = {"pairs": total, "live_pixel_updates": 0, "live_warps": 0, "reach_warps": 0, "kept_warps": 0}
     if total == 0:
         return out
     tile_of = torch.repeat_interleave(torch.arange(nty * ntx, device=dev), counts)
@@ -402,6 +451,7 @@ def walked_pair_counts(fields, pair_splat, tile_base, tile_phi, used, nty, ntx, 
     pos = tile_phi.long()[tile_of] + torch.arange(total, device=dev) - start[tile_of]
     cols = pair_splat[tile_base.long()[tile_of] + pos].long()
     bgd = None if bg_depth is None else _depth_tiles(bg_depth, nty, ntx)
+    zmax = None if bgd is None else warp_zmax(bgd)
     max_alpha = torch.full((), config.max_alpha, dtype=torch.float32, device=dev)
     iota = torch.arange(TILE, dtype=torch.float32, device=dev) + 0.5
     # (8, 32, 32): the warp each pixel of a tile lies in
@@ -412,7 +462,7 @@ def walked_pair_counts(fields, pair_splat, tile_base, tile_phi, used, nty, ntx, 
     for b0 in range(0, total, batch):
         t = tile_of[b0:b0 + batch]
         f = fields[:, cols[b0:b0 + batch]]
-        geo, _, _, _, op = _payload_columns(f, packed)
+        geo, cr, cg, cb, op = _payload_columns(f, packed)
         gx0 = ((t % ntx) * col_stride + col_off) * TILE
         gy0 = (torch.div(t, ntx, rounding_mode="floor") * row_stride + row_off) * TILE
         px = gx0.to(torch.float32)[:, None, None] + iota[None, None, :]
@@ -424,10 +474,13 @@ def walked_pair_counts(fields, pair_splat, tile_base, tile_phi, used, nty, ntx, 
             out["live_pixel_updates"] += live.shape[0] * TILE * TILE
         else:
             out["live_pixel_updates"] += int(live.sum())
-        if config.soft_cutoff or mode == MODE_WIRE:  # no reach test: every warp
+        if config.soft_cutoff and mode != MODE_WIRE:  # no reach test: every warp
             out["reach_warps"] += live.shape[0] * WARPS
         else:
-            out["reach_warps"] += int(reach_mask_plain(geo, gx0, gy0).sum())
+            out["reach_warps"] += int(reach_mask_plain(
+                geo, gx0, gy0, config.line_px if mode == MODE_WIRE else None).sum())
+        out["kept_warps"] += int(fwd_mask_plain(geo, torch.stack([cr, cg, cb]), viewz, gx0, gy0, config,
+                                                None if zmax is None else zmax[t]).sum())
         out["live_warps"] += int((live[:, None] & in_warp[None]).any(dim=(2, 3)).sum())
     return out
 
@@ -590,7 +643,6 @@ def composite_splats(
     On CUDA tensors this launches the kernel (or raises); on CPU tensors it
     takes :func:`composite_splats_plain`.
     """
-    global launches, launches_checkpoint, launches_depth, launches_wire, launches_strided
     packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
                     bg_depth, offsets)
     _check_forward_only(config, checkpoint)
@@ -600,12 +652,41 @@ def composite_splats(
             fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
             checkpoint=checkpoint, bg_depth=bg_depth, offsets=offsets,
         )
+    image, used, tchk, _ = _composite_fwd_cuda(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx,
+                                               height, width, config, checkpoint, bg_depth, offsets, packed)
+    if checkpoint:
+        return image, used, tchk
+    return image, used
+
+
+def composite_splats_audit(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
+                           bg_depth=None, offsets=(0, 0)):
+    """The forward kernel's audit instance, for the checks (CUDA tensors):
+    :func:`composite_splats`'s ``(image, used)``, the number of pixels with
+    α ≠ 0 in the warps its mask skipped, which must be 0, and the number of
+    (pair, warp) couples the mask kept over the pairs walked
+    (:func:`walked_pair_counts`' ``kept_warps``).  Counts as a launch of the
+    forward like any other."""
+    packed = _check(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
+                    bg_depth, offsets)
+    if not fields.is_cuda:
+        raise ValueError("the audit instance runs on CUDA tensors only")
+    image, used, _, counts = _composite_fwd_cuda(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx,
+                                                 height, width, config, False, bg_depth, offsets, packed,
+                                                 audit=True)
+    skipped, kept = counts.tolist()
+    return image, used, skipped, kept
+
+
+def _composite_fwd_cuda(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, height, width, config,
+                        checkpoint, bg_depth, offsets, packed, audit=False):
+    global launches, launches_checkpoint, launches_depth, launches_wire, launches_strided
     mapping = tile_mapping(config, offsets)
     mode = kernel_mode(config)
     depth = bg_depth if mode == MODE_DEPTH else None
     _require_contiguous(fields=fields, pair_splat=pair_splat, tile_base=tile_base,
                         tile_phi=tile_phi, tile_span=tile_span, bg_depth=depth)
-    if (P_ROWS_DEPTH + 1) * config.chunk * 4 > 48 * 1024:
+    if (P_ROWS_DEPTH + 2) * config.chunk * 4 > 48 * 1024:
         raise ValueError(f"chunk={config.chunk} exceeds the kernel's shared memory")
     dev = fields.device
     num_tiles = nty * ntx
@@ -615,6 +696,7 @@ def composite_splats(
     tchk = None
     if checkpoint:
         tchk = torch.empty((num_tiles, n_chk, TILE * TILE), dtype=torch.float32, device=dev)
+    counts = torch.zeros((2,), dtype=torch.int32, device=dev) if audit else None
     # the band test takes no cutoff, hard or soft (JAX's _splat_alpha returns
     # before it reads soft_cutoff), and the kernel has no soft band variant
     soft = config.soft_cutoff and mode != MODE_WIRE
@@ -625,7 +707,7 @@ def composite_splats(
             mode, None if depth is None else depth.data_ptr(), config.line_px,
             pair_splat.data_ptr(), tile_base.data_ptr(), tile_phi.data_ptr(),
             tile_span.data_ptr(), image.data_ptr(), used.data_ptr(),
-            tchk.data_ptr() if checkpoint else None,
+            tchk.data_ptr() if checkpoint else None, None if counts is None else counts.data_ptr(),
             nty, ntx, height, width, config.chunk, n_chk,
             config.max_alpha, config.transmittance_eps, *mapping,
             torch.cuda.current_stream().cuda_stream,
@@ -636,10 +718,8 @@ def composite_splats(
     launches_strided += int(mapping != (1, 1, 0, 0))
     launches_depth += int(mode == MODE_DEPTH)
     launches_wire += int(mode == MODE_WIRE)
-    if checkpoint:
-        launches_checkpoint += 1
-        return image, used, tchk
-    return image, used
+    launches_checkpoint += int(checkpoint)
+    return image, used, tchk, counts
 
 
 def _check_bwd(used, grad_base, d_out, tchk, g_pad, num_tiles, height, width, config, device):

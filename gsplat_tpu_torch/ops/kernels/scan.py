@@ -14,13 +14,18 @@ what the kernel moves.  Integer add and max are exact in any association
 order, so the kernel equals ``torch.cumsum`` / ``torch.cummax`` bit for bit.
 
 The scratch (the tile counter and one status word a tile) belongs to this
-module, one int64 tensor per (device, stream), grown with ``torch.empty``:
-every call passes a new epoch, and words of other epochs read as "not ready"
-(see the source).  So a call enqueues one kernel and nothing else.  Two
-consequences: a launch with its epoch baked in must not run twice, so a call
-under CUDA graph capture raises; and when the epochs run out (after 2^31 - 2
-calls) the scratch is zeroed once, with the device idle, before they start
-again.
+module, one int64 tensor per (device, stream): every call passes a new
+epoch, and words of earlier epochs read as "not ready" (see the source).  So
+a call enqueues one kernel and nothing else.  That holds only if no word
+already carries a tag of a coming epoch, so the scratch is allocated and
+grown with ``torch.zeros`` (epoch 0's tags, which no call has), never
+``torch.empty``: the caching allocator hands back blocks this process freed,
+and an int32 array of small counts or offsets read as 64-bit words carries
+exactly the small epochs a young process uses next.  One memset a growth,
+none a call.  Two more consequences: a launch with its epoch baked in must
+not run twice, so a call under CUDA graph capture raises; and when the
+epochs run out (after 2^31 - 2 calls) the scratch is zeroed once, with the
+device idle, before they start again.
 
 The wrapper launches the kernel for every CUDA tensor, whatever its length
 (the JAX wrapper's "small arrays go to ``jnp.cumsum``" branch was a
@@ -51,6 +56,7 @@ _lib = None
 _scratch = {}
 _epoch = 0
 _EPOCH_END = 2**31 - 1  # epochs run over [1, _EPOCH_END)
+_DEVICE_TYPE = "cuda"  # where the scratch lives
 
 
 def _library():
@@ -79,12 +85,14 @@ def scratch_words(n: int) -> int:
 def _scratch_for(device: int, stream: int, words: int) -> torch.Tensor:
     buf = _scratch.get((device, stream))
     if buf is None or buf.numel() < words:
-        # Whatever the new block holds reads as "not ready" (the epoch), so
-        # torch.empty is enough.  The old block may still be read by the
-        # kernels queued before: the caching allocator hands it out again
-        # only in this stream's order.
-        buf = torch.empty((max(words, 2 * (0 if buf is None else buf.numel())),), dtype=torch.int64,
-                          device=torch.device("cuda", device))
+        # Zeroed, which is required: a block the allocator hands back may
+        # hold this process's earlier data, whose words can carry the tags
+        # of the coming epochs (a false "ready" status, or a tile counter
+        # that skips its restart and leaves tiles unscanned).  The old block
+        # may still be read by the kernels queued before: the caching
+        # allocator hands it out again only in this stream's order.
+        buf = torch.zeros((max(words, 2 * (0 if buf is None else buf.numel())),), dtype=torch.int64,
+                          device=torch.device(_DEVICE_TYPE, device))
         _scratch[(device, stream)] = buf
     return buf
 

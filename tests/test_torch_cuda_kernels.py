@@ -9,6 +9,11 @@ the module is imported).  Run them on a machine with a card:
 ``python3 chip_smoke.py`` makes the same comparisons at more shapes.
 """
 
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -383,3 +388,90 @@ def test_backward_reach_test_audit_and_determinism(card, case):
         else:
             assert float((a[r] - w[r]).abs().max()) <= 1e-5 * scale, r
     assert float(w.abs().max()) > 0.0
+
+
+def test_scan_growth_over_a_block_holding_the_next_epochs_tags(card):
+    """The scratch is zeroed at every growth: twice, a freed block of the
+    size the growth requests holds the next call's tags (tile counter
+    (epoch << 32) | 5, every status word (2 * epoch) << 32) and is handed
+    back by the allocator, and the scan stays bit-equal to torch.cumsum /
+    cummax (chip_smoke.scan_growth_probe).  In a child process under a
+    timeout of its own, since a scratch that trusted such a block could
+    leave the look-back spinning."""
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.scan_growth_probe())"
+    res = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, (res.stdout[-2000:], res.stderr[-2000:])
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert [r["kind"] for r in out] == ["add", "max"]
+    assert all(r["block_handed_back"] and r["bit_equal"] for r in out), out
+
+
+def _forward_case(card, case):
+    """Compositor inputs of one mode: (fwd args, scene depth, offsets)."""
+    import dataclasses
+
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.ops import wireframe as wire
+    from gsplat_tpu_torch.ops.projection import project_splats
+    from gsplat_tpu_torch.ops.rasterize_ref import quantize_payload, sanitize_projected
+    from gsplat_tpu_torch.ops.rasterize_tiles import sort_by_depth
+
+    g = torch.Generator(device=card).manual_seed(2)
+    splats = gt.random_splats(g, 8000, extent=0.8, scale_range=(0.01, 0.05), sh_scale=0.2, device=card)
+    width, height = (320, 704) if case == "strided" else (200, 120)
+    cam = gt.make_camera([0.2, 0.4, 3.0], [0, 0, 0], width, height, device=card)
+    cfg = gt.RenderConfig(payload_dtype="packed" if case in ("packed", "strided") else "float32",
+                          soft_cutoff=case == "soft_depth", depth_test=case in ("depth", "soft_depth"),
+                          transmittance_eps=1e-3, pairs_per_splat=8.0)
+    if case == "wire":
+        return wire._wireframe_inputs(splats, cam, cfg, 1.5)[0], None, (0, 0)
+    offsets, strip_w, strip_h = (0, 0), width, height
+    if case == "strided":
+        cfg = dataclasses.replace(cfg, row_stride=2, col_stride=2)
+        offsets, strip_w, strip_h = (1, 1), 160, 352
+    p = project_splats(splats, cam, 3, tight_footprint=not cfg.soft_cutoff)
+    p = sort_by_depth(quantize_payload(sanitize_projected(p), cfg), 15 if cfg.depth_test else 14)
+    b = binning.bin_splats(p, strip_w, strip_h, cfg, row_offset=offsets[0], col_offset=offsets[1],
+                           with_tiles=False)
+    nty, ntx = binning.tile_grid(strip_w, strip_h, 32, 32)
+    bgd = None
+    if cfg.payload_dtype == "packed":
+        pay = kcomp.pack_payload(p.fields)
+    elif cfg.depth_test:
+        pay = torch.cat([p.fields[:10], p.fields[14:15]]).contiguous()
+        bgd = ((2.0 + 1.5 * torch.linspace(0, 1, width, device=card)[None, :]) *
+               torch.ones((height, 1), device=card)).contiguous()
+        bgd[height // 2] = float("nan")
+    else:
+        pay = p.fields[:10].contiguous()
+    return (pay, b.pair_splat, b.tile_base, b.tile_phi, b.tile_span, nty, ntx, strip_h, strip_w, cfg), bgd, offsets
+
+
+@pytest.mark.parametrize("case", ["float32", "packed", "depth", "soft_depth", "wire", "strided"])
+def test_forward_warp_mask_audit_and_determinism(card, case):
+    """The forward with its warp mask: image within 1e-5 of the plain
+    version's and stop counters equal; the checkpoints within 1e-5 on the
+    chunks walked; the audit instance counts 0 pixels with α != 0 in the
+    warps it skipped, writes the same image and keeps exactly the plain
+    mask's (pair, warp) couples; two runs bit-equal."""
+    fwd, bgd, offsets = _forward_case(card, case)
+    img, used = kcomp.composite_splats(*fwd, bg_depth=bgd, offsets=offsets)
+    img2, used2 = kcomp.composite_splats(*fwd, bg_depth=bgd, offsets=offsets)
+    assert torch.equal(img, img2) and torch.equal(used, used2)
+    img_p, used_p = kcomp.composite_splats_plain(*fwd, bg_depth=bgd, offsets=offsets)
+    assert float((img - img_p).abs().max()) < 1e-5 and torch.equal(used, used_p)
+    a_img, a_used, skipped, kept = kcomp.composite_splats_audit(*fwd, bg_depth=bgd, offsets=offsets)
+    pay, pair_splat, tile_base, tile_phi, _, nty, ntx, _, _, cfg = fwd
+    counts = kcomp.walked_pair_counts(pay, pair_splat, tile_base, tile_phi, used, nty, ntx, cfg, bgd, offsets)
+    assert skipped == 0 and torch.equal(a_img, img) and torch.equal(a_used, used)
+    assert kept == counts["kept_warps"] and counts["live_warps"] <= kept
+    if case != "soft_depth":  # the mask drops something
+        assert kept < 8 * counts["pairs"]
+    if case != "wire":
+        img_c, used_c, tchk = kcomp.composite_splats(*fwd, checkpoint=True, bg_depth=bgd, offsets=offsets)
+        _, _, tchk_p = kcomp.composite_splats_plain(*fwd, checkpoint=True, bg_depth=bgd, offsets=offsets)
+        assert torch.equal(img_c, img) and torch.equal(used_c, used)
+        walked = torch.arange(tchk.shape[1], device=card)[None, :] < ((used + cfg.chunk - 1) // cfg.chunk)[:, None]
+        assert float(torch.where(walked[:, :, None], (tchk - tchk_p).abs(), 0.0).max()) < 1e-5
+    assert float(img[..., 3].max()) > 0.5

@@ -78,3 +78,27 @@ def test_scan_scratch_sizing_and_epochs(monkeypatch):
         seen.append(tscan._next_epoch())
         assert all(bool((buf == 0).all()) == (seen[-1] < seen[0]) for buf in bufs.values()), seen
     assert seen == [2**31 - 3, 2**31 - 2, 1, 2]
+
+
+def test_grown_scratch_holds_only_zeros(monkeypatch):
+    """The scratch is allocated and grown zeroed (the tags of epoch 0, which
+    no call has), whatever the block the allocator hands back held: here
+    every fresh block holds the next epoch's tile counter (epoch << 32) | 5
+    and its status words (2 * epoch) << 32, as a block of this process's
+    earlier data can, with the allocation moved onto the CPU."""
+    e = tscan._epoch + 1
+    real_empty = torch.empty
+
+    def handed_back(*size, **kw):
+        block = real_empty(*size, **kw).fill_((2 * e) << 32)
+        block.view(-1)[0] = (e << 32) | 5
+        return block
+
+    monkeypatch.setattr(tscan, "_DEVICE_TYPE", "cpu")
+    monkeypatch.setattr(tscan, "_scratch", {})
+    monkeypatch.setattr(torch, "empty", handed_back)
+    first = tscan._scratch_for(0, 1, tscan.scratch_words(5 * tscan.TILE + 3))
+    assert first.device.type == "cpu" and first.numel() == 7 and not bool(first.any())
+    grown = tscan._scratch_for(0, 1, 9)  # grows to twice the old size
+    assert grown.numel() == 14 and not bool(grown.any()) and tscan._scratch[(0, 1)] is grown
+    assert tscan._scratch_for(0, 1, 14) is grown  # no growth: the same block, as the kernel left it
