@@ -23,19 +23,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the same image and counters bit for bit; backward compositor:
              every gradient-space row within 1e-5 of the row's max, the packed
              bf16 halves within one bf16 step - the two sides add 1024 pixels
-             in different orders; segment sum: within 1e-6 of the row's max
-             and bit-equal between two runs; the compositors' depth-test mode
-             and the forward's wireframe mode (hard and soft configs) by the
-             same gates; the ALU probe's float32 chains bit-equal to their
-             plain versions and its expf chain within 1e-6, at two link
-             counts, one link moving nearly every value and the values
-             hanging on their inputs; the gather probe's
-             float64 sums within 1e-9 of the summed magnitudes and its writes
-             bit-equal; both compositors in the strided/offset tile mapping
-             of the sharded renderer on the grids (2, 2) at (0, 0) and
-             (1, 1), (1, 4) at (0, 3), (4, 1) at (3, 0) and a contiguous strip
-             at tile row 17: the forward and its checkpoint variant bit-equal,
-             the backward rows as above).  Every backward call, here and in
+             in different orders; segment sum (on the pair-major gradient
+             space): within 1e-6 of the row's max and bit-equal between two
+             runs; the compositors' depth-test mode and the forward's
+             wireframe mode (hard and soft configs) by the same gates; the ALU probe's float32 chains
+             bit-equal to their plain versions and its expf chain within 1e-6,
+             at two link counts, one link moving nearly every value and the
+             values hanging on their inputs; the gather probe's float64 sums
+             within 1e-9 of the summed magnitudes and bit-equal between two
+             runs, its writes bit-equal, at one query and at a block span one
+             past the staging tile too; both compositors in the strided/offset
+             tile mapping of the sharded renderer on the grids (2, 2) at (0, 0)
+             and (1, 1), (1, 4) at (0, 3), (4, 1) at (3, 0) and a contiguous
+             strip at tile row 17: the forward and its checkpoint variant
+             bit-equal, the backward rows as above).  Every backward call, here and in
              the kernels phase, also runs twice (bit-equal) and through its
              audit instance (no pixel with alpha != 0 in a warp the reach
              test skipped).  Every time below is taken by
@@ -106,9 +107,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              data sheet's rates; bound_measured_ms at this run's rates; the
              compositors priced on the pixel updates with alpha != 0, the
              all-pixel bound beside; the forward rows with the warps a pair
-             has live, reaches and keeps); the scans' device operations a
-             call from a profiler trace; the strided rows at rank 0's inputs
-             on the sharded path.
+             has live, reaches and keeps; the segment sum's bound on 32-byte
+             sectors beside its useful-byte bound, and its time on a float32
+             space); the scans' device operations a call from a profiler
+             trace; the strided rows at rank 0's inputs on the sharded path.
 
 python3 chip_smoke.py --frame-digest prints only the SHA-256 of the main
 path's first frame and of its forward kernel's image and stop counters, to
@@ -361,11 +363,13 @@ def compare_checkpoint(fwd, label, bgd=None, offsets=(0, 0)):
 
 
 def gspace_rows(gspace, packed):
-    """Gradient space as nine float32 rows, whatever its storage."""
+    """The pair-major gradient space, (G, 9) float32 or (G, 8) int32, as nine
+    float32 rows (9, G), one a sum."""
     if not packed:
-        return gspace
-    cg, cb = kcomp.unpack2(gspace[6:7])
-    return torch.cat([gspace[0:6].view(torch.float32), cg, cb, gspace[7:8].view(torch.float32)], dim=0)
+        return gspace.t()
+    cg, cb = kcomp.unpack2(gspace[:, 6])
+    return torch.cat([gspace[:, 0:6].view(torch.float32).t(), cg[None], cb[None],
+                      gspace[:, 7:8].view(torch.float32).t()], dim=0)
 
 
 # Backward calls audited in this process: both runs bit-equal, and (hard
@@ -433,6 +437,9 @@ def compare_backward(fwd, b, used, tchk, d_out, g_pad, label, bgd=None, offsets=
 
 
 def compare_segsum(gspace, b, packed, label):
+    """segsum_by_splat against its plain version: two runs bit-equal, the
+    storage-order result the rank-order one permuted, empty ranks exact
+    zeros."""
     args = (gspace, b.dest_of_exp, b.exp_offsets, b.exp_counts)
     got = ksegsum.segsum_by_splat(*args, packed=packed)
     again = ksegsum.segsum_by_splat(*args, packed=packed)
@@ -589,7 +596,10 @@ def check_probes():
         for variant in kprobes.ALU_VARIANTS:
             _, rel = check_alu(x, 64, variant, f"n={n}")
             out["alu_max_rel_err"][variant] = max(out["alu_max_rel_err"].get(variant, 0.0), rel)
-    for n_cols, p in ((1 << 16, 100_003), (1000, 7)):
+    # one query; a few; a block's span one past the staging tile, so that
+    # every block of the column sweeps takes a second, one-query tile
+    sweep_edge = kprobes.GATHER_TILE * kprobes.gather_blocks(DEV, "column") + 1
+    for n_cols, p in ((1 << 16, 100_003), (1000, 7), (1000, 1), (1 << 16, sweep_edge)):
         mat = torch.randn((kprobes.PROBE_ROWS, n_cols), generator=g, device=DEV)
         idx = torch.randint(0, n_cols, (p,), generator=g, device=DEV, dtype=torch.int32)
         for access in kprobes.GATHER_ACCESSES:
@@ -600,7 +610,10 @@ def check_probes():
                 err = 0.0 if torch.equal(got, want) else float((got - want).abs().max())
                 ok = err == 0.0
             else:
-                got = float(kprobes.gather_probe(m, idx, access))
+                got_t = kprobes.gather_probe(m, idx, access)
+                if not torch.equal(got_t, kprobes.gather_probe(m, idx, access)):
+                    fail(f"gather_probe[{access}] ({n_cols} columns, {p} queries): two runs differ")
+                got = float(got_t)
                 want = float(kprobes.gather_probe_plain(m, idx, access))
                 scale = float(kprobes.gather_probe_plain(m.abs(), idx, access))
                 err = abs(got - want)
@@ -1585,21 +1598,37 @@ def phase_train_kernels(splats, cam, cfg, counts):
     ms_seg = cuda_time_ms(lambda: ksegsum.segsum_by_splat(*sargs, packed=packed), 20, warmup=2)[0]
     plain_seg_ms = cuda_time_ms(lambda: ksegsum.segsum_by_splat_plain(*sargs, packed=packed), 5, warmup=2)[0]
     # The library yardstick: index_add_ of the already gathered expansion-order
-    # columns by rank (the port never calls it on the card).
+    # rows by rank (the port never calls it on the card).
     keep = b.dest_of_exp >= 0
-    cols = gspace_rows(gspace, packed)[:, torch.where(keep, b.dest_of_exp, 0).long()] * keep
+    pair_rows = gspace_rows(gspace, packed).t()[torch.where(keep, b.dest_of_exp, 0).long()] * keep[:, None]
     rank = torch.clamp(b.exp_rank, min=0).long()
-    out = torch.zeros((9, n), device=DEV)
-    lib_ms = cuda_time_ms(lambda: out.zero_().index_add_(1, rank, cols), 10, warmup=2)[0]
+    out = torch.zeros((n, 9), device=DEV)
+    lib_ms = cuda_time_ms(lambda: out.zero_().index_add_(0, rank, pair_rows), 10, warmup=2)[0]
+    del pair_rows, out
+    # The same inputs in a float32 space (the depth test's and the float32
+    # payload's).
+    gs32 = gspace_rows(gspace, packed).t().contiguous()
+    e_f32, _ = compare_segsum(gs32, b, False, "train-path frame, float32 space")
+    f32_ms = cuda_time_ms(lambda: ksegsum.segsum_by_splat(*(gs32,) + sargs[1:]), 20, warmup=2)[0]
+    del gs32
     kept = int(keep.sum())
-    nbytes = kept * gspace.shape[0] * 4 + b.dest_of_exp.numel() * 4 + 2 * n * 4 + 9 * n * 4
+    other = b.dest_of_exp.numel() * 4 + 2 * n * 4 + 9 * n * 4
+    nbytes = kept * gspace.shape[1] * 4 + other
+    sector_bytes = kept * 32 * (1 if packed else 2) + other
     row = {"name": "segsum", "route": "cuda", "source": "gsplat_tpu_torch/csrc/segsum.cu",
            "replaces": "gsplat_tpu/ops/pallas/segsum.py:148", "launches": counts["segsum"],
            "max_abs_err": e_seg_abs, "ms": ms_seg, "plain_ms": plain_seg_ms}
     row.update(bytes_bounds(nbytes))
-    row.update(library_ms=lib_ms, library="Tensor.index_add_ on pre-gathered columns",
+    row.update(library_ms=lib_ms, library="Tensor.index_add_ on pre-gathered rows",
+               sector_bytes=sector_bytes, bound_sectors_ms=sector_bytes / DEVICE["hbm_bw_datasheet"] * 1e3,
+               bound_sectors_rule="one 32-byte sector a kept pair (two in float32 mode) beside the useful bytes",
+               grad_space=f"pair-major {tuple(gspace.shape)} {str(gspace.dtype).replace('torch.', '')}",
                worst_row_rel_err=e_seg, row_tolerance=SEGSUM_TOL, pairs_kept=kept,
-               pair_budget=b.dest_of_exp.numel(), bytes=nbytes)
+               pair_budget=b.dest_of_exp.numel(), bytes=nbytes,
+               float32_space_ms=f32_ms,
+               float32_space_worst_row_rel_err=e_f32,
+               float32_space_bound_ms=(kept * 36 + other) / DEVICE["hbm_bw_datasheet"] * 1e3,
+               float32_space_bound_sectors_ms=(kept * 64 + other) / DEVICE["hbm_bw_datasheet"] * 1e3)
     rows.append(row)
     return rows
 

@@ -32,9 +32,12 @@
 //   * the nine sums, in this row order: dp2*dx, dp2*dy, dp2*dx^2, dp2*dx*dy,
 //     dp2*dy^2, dc_r*w, dc_g*w, dc_b*w, dp2, with w = alpha * T_i and
 //     dx = px - cx, dy = py - cy taken directly at every pixel.  Packed mode
-//     writes eight int32 rows: the first six sums bit-cast, (dc_g*w, dc_b*w)
-//     rounded to bf16 (nearest even) as the two halves of row 6, dp2 in row 7;
-//   * written at column grad_base[t] + pos.  Pixels beyond the image edge
+//     writes eight int32 words: the first six sums bit-cast, (dc_g*w, dc_b*w)
+//     rounded to bf16 (nearest even) as the two halves of word 6, dp2 in word 7;
+//   * written pair-major, to row grad_base[t] + pos of the (g_pad, 9) float32
+//     or (g_pad, 8) int32 gradient space, so that a pair's words are one
+//     32-byte sector (packed) and its reader fetches them at once (a chunk's
+//     positions are one contiguous run of words).  Pixels beyond the image edge
 //     carry a zero cotangent and add exact zeros; the wrapper zero-fills the
 //     whole space once, so positions outside [phi, used) and chunks the
 //     forward never walked are never touched here.
@@ -108,6 +111,11 @@ using namespace gsplat;
 
 constexpr int SUB = 8;              // pairs per sub-block of the replay
 constexpr int NSUMS = 9;
+// s_red's rows (one a sum) are WARPS * chunk + RED_PAD words apart, so that
+// the store loop's reads (8 or 9 sums of 4 neighbouring pairs a warp) fall
+// in 32 distinct banks; at WARPS * chunk words apart, a multiple of 32, the
+// lanes that share a pair would all hit one bank.
+constexpr int RED_PAD = 4;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int pack_bf16_pair(float hi, float lo) {
@@ -140,8 +148,7 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
                      const int* __restrict__ grad_base,
                      const float* __restrict__ d_out,  // (height, width, 4)
                      const float* __restrict__ tchk,   // (num_tiles, max_chunks, 1024)
-                     int* __restrict__ gout,           // (GROWS, g_pad) 32-bit words
-                     long long g_pad,
+                     int* __restrict__ gout,           // (g_pad, GROWS) 32-bit words
                      const int* __restrict__ order,    // (num_tiles,)
                      int* __restrict__ audit,          // AUDIT: skipped live pixels
                      int ntx, int height, int width, int chunk, int max_chunks,
@@ -153,8 +160,9 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
     int* s_idx = smem;                                              // [chunk]
     int* s_pay = s_idx + chunk;                                     // [ROWS][chunk]
     int* s_reach = s_pay + ROWS * chunk;                            // [chunk] warp bits
-    float* s_red = reinterpret_cast<float*>(s_reach + chunk);       // [NSUMS][WARPS][chunk]
-    float* s_tsub = s_red + NSUMS * WARPS * chunk;                  // [chunk/SUB][PIX][THREADS]
+    const int red_stride = WARPS * chunk + RED_PAD;
+    float* s_red = reinterpret_cast<float*>(s_reach + chunk);       // [NSUMS][red_stride]: [WARPS][chunk]
+    float* s_tsub = s_red + NSUMS * red_stride;                     // [chunk/SUB][PIX][THREADS]
 
     const int t = order[blockIdx.x];
     const int usedv = used[t];
@@ -288,10 +296,10 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
                 }
             }
             // Where this sub-block's partials go: pair my_pair, sums my_r0 ...
-            float* dst = s_red + (my_r0 * WARPS + warp) * chunk + s * SUB + my_pair;
+            float* dst = s_red + my_r0 * red_stride + warp * chunk + s * SUB + my_pair;
             if (!__any_sync(FULL, any_alpha)) {
                 // no alpha != 0 in the warp: zeros, and u stays as it is
-                for (int i = 0; i < my_cnt; ++i) dst[i * WARPS * chunk] = 0.0f;
+                for (int i = 0; i < my_cnt; ++i) dst[i * red_stride] = 0.0f;
                 continue;
             }
             float odd[NSUMS], l1_hi[NSUMS], l2_hi[NSUMS], l3[NSUMS];
@@ -372,18 +380,21 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
             }
 #pragma unroll
             for (int i = 0; i < 3; ++i)
-                if (i < my_cnt) dst[i * WARPS * chunk] = k3[i];
+                if (i < my_cnt) dst[i * red_stride] = k3[i];
         }
         __syncthreads();
 
-        // The chunk's own positions, row by row, to the gradient space: the 8
-        // warps' partials added in warp order.
+        // The chunk's own positions to the gradient space, pair-major: word w
+        // of the run is word r of pair p, the 8 warps' partials added in warp
+        // order.
         const int cnt = p_hi - p_lo;
+        const long long row0 = (long long)gbase + c0 + p_lo;
         for (int w = tid; w < cnt * GROWS; w += THREADS) {
-            const int r = w / cnt;
-            const int p = p_lo + (w - r * cnt);
+            const int pi = w / GROWS;
+            const int r = w - pi * GROWS;
+            const int p = p_lo + pi;
             auto total = [&](int row) {
-                const float* src = s_red + row * WARPS * chunk + p;
+                const float* src = s_red + row * red_stride + p;
                 float acc = 0.0f;
 #pragma unroll
                 for (int wv = 0; wv < WARPS; ++wv) acc += src[wv * chunk];
@@ -397,7 +408,7 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
             } else {
                 v = __float_as_int(total(8));
             }
-            gout[(long long)r * g_pad + gbase + c0 + p] = v;
+            gout[row0 * GROWS + w] = v;
         }
         // load_chunk's first barrier keeps the next chunk's writes of s_red
         // and s_tsub behind these reads.
@@ -412,8 +423,8 @@ composite_bwd_kernel(const int* __restrict__ fields,  // (ROWS, n_cols) 32-bit w
 // used: (nty*ntx,) int32 and tchk: (nty*ntx, max_chunks, 1024) float32, as the
 // checkpointed forward wrote them.  grad_base: (nty*ntx,) int32.
 // d_out: (height, width, 4) float32, 16-byte aligned.
-// gout: (9, g_pad) float32, or with packed != 0 (8, g_pad) int32; zero-filled
-// by the caller.  row_stride, col_stride, row_off, col_off: the forward's tile
+// gout: (g_pad, 9) float32, or with packed != 0 (g_pad, 8) int32, pair-major;
+// zero-filled by the caller.  row_stride, col_stride, row_off, col_off: the forward's tile
 // mapping (1, 1, 0, 0 for a full frame; only that with depth != 0).
 // order: a permutation of the nty*ntx tiles, the order blocks take them in.
 // audit: null, or one int32 (hard cutoff only) to which the audit instance
@@ -423,7 +434,7 @@ extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int pa
                                     const void* tile_base,
                                     const void* tile_phi, const void* tile_span,
                                     const void* used, const void* grad_base, const void* d_out,
-                                    const void* tchk, void* gout, long long g_pad, int nty,
+                                    const void* tchk, void* gout, int nty,
                                     int ntx, int height, int width, int chunk, int max_chunks,
                                     float max_alpha, int row_stride, int col_stride, int row_off,
                                     int col_off, const void* order, void* audit, void* stream) {
@@ -439,7 +450,7 @@ extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int pa
     if (audit != nullptr && soft) return (int)cudaErrorInvalidValue;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
     const int rows = packed ? 8 : (depth ? 11 : 10);
-    const size_t words = (size_t)chunk * (1 + rows + 1 + NSUMS * WARPS) +
+    const size_t words = (size_t)chunk * (1 + rows + 1) + (size_t)NSUMS * (WARPS * chunk + RED_PAD) +
                          (size_t)(chunk / SUB) * gsplat::PIX * gsplat::THREADS;
     const size_t shmem = words * sizeof(int);
     if (shmem > 227 * 1024) return (int)cudaErrorInvalidValue;
@@ -462,7 +473,7 @@ extern "C" int gsplat_composite_bwd(const void* fields, long long n_cols, int pa
                                              (int)shmem);                                        \
         if (e != cudaSuccess) return (int)e;                                                     \
         composite_bwd_kernel<P, S, D, A><<<num_tiles, gsplat::THREADS, shmem, s>>>(              \
-            f, n_cols, bd, ps, tb, tp, us, gb, dout, tc, go, g_pad, od, au, ntx, height, width,  \
+            f, n_cols, bd, ps, tb, tp, us, gb, dout, tc, go, od, au, ntx, height, width,  \
             chunk, max_chunks, max_alpha, row_stride, col_stride, row_off, col_off);             \
     } while (0)
     const bool a = au != nullptr;

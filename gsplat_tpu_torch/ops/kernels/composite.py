@@ -22,7 +22,8 @@ top of each chunk it walks (``fwd_chk_call`` of the JAX package).
 tile a reverse walk of the chunks the forward walked, α recomputed by the
 forward's own operations, T replayed from the checkpoints, and per pair the
 nine raw moment sums over the tile's 1024 pixels written into the tile's own
-region of the gradient address space (``binning.grad_base``).  With the hard
+region of the pair-major gradient address space (``binning.grad_base``; one
+row a pair slot, which the segment sum reads whole).  With the hard
 cutoff a warp skips every pair whose |q| ≤ 2 region cannot reach its
 rectangle of 128 pixels (the reach test, :func:`reach_mask_plain` its plain
 twin); the skipped warps add exact zeros, so the sums do not change.
@@ -73,11 +74,12 @@ TILE = 32          # the kernel's pixel tile is TILE×TILE
 P_ROWS = 10        # payload rows: cx cy ax ay bx by r g b op
 P_ROWS_DEPTH = 11  # the same and the view-z row of the depth test
 P_ROWS_PACKED = 8  # packed payload rows: [cx cy ax ay bx by (r,g) (b,op)]
-N_SUMS = 9         # gradient-space rows, the raw moment sums of one pair over
-                   # its tile's pixels: Σdp2·dx, Σdp2·dy, Σdp2·dx², Σdp2·dxdy,
+N_SUMS = 9         # words of a gradient-space row, the raw moment sums of one
+                   # pair over its tile's pixels: Σdp2·dx, Σdp2·dy, Σdp2·dx², Σdp2·dxdy,
                    # Σdp2·dy², Σdc_r·w, Σdc_g·w, Σdc_b·w, Σdp2
-G_ROWS_PACKED = 8  # packed gradient-space rows (int32): the first six sums
-                   # bit-cast, (Σdc_g·w, Σdc_b·w) as two bf16 halves, Σdp2
+G_ROWS_PACKED = 8  # words of a packed gradient-space row (int32): the first
+                   # six sums bit-cast, (Σdc_g·w, Σdc_b·w) as two bf16 halves,
+                   # Σdp2
 
 # Wrapper calls that launched the forward kernel (any variant), those of them
 # that wrote checkpoints, that ran the depth test, that ran the wireframe band
@@ -126,7 +128,7 @@ def _library_bwd():
         lib.gsplat_composite_bwd.argtypes = [
             p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, p,
-            p, p, p, p, p, p, p, p, p, ctypes.c_longlong,
+            p, p, p, p, p, p, p, p, p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             p, p, p,
@@ -773,7 +775,7 @@ def composite_bwd_plain(
     tiles = _PlainTiles(fields, pair_splat, tile_base, tile_phi, tile_span, nty, ntx, config, packed,
                         bg_depth, offsets)
 
-    gspace = torch.zeros((N_SUMS, g_pad), dtype=f32, device=dev)
+    gspace = torch.zeros((g_pad, N_SUMS), dtype=f32, device=dev)
     d_tiles = _to_tiles(d_out, nty, ntx)  # off-image pixels: exact zeros
     dc_r, dc_g, dc_b = d_tiles[:, 0], d_tiles[:, 1], d_tiles[:, 2]
     u = -d_tiles[:, 3]
@@ -819,17 +821,17 @@ def composite_bwd_plain(
                 ]
             )  # (9, T)
             u = u + alpha * ku
-            cols = (gbase + (ci * chunk + i))[valid]
-            gspace[:, cols] = sums[:, valid]
+            slots = (gbase + (ci * chunk + i))[valid]
+            gspace[slots] = sums[:, valid].t()
 
     if packed:
         return torch.cat(
             [
-                gspace[0:6].view(torch.int32),
-                pack2(gspace[6:7], gspace[7:8]),
-                gspace[8:9].view(torch.int32),
+                gspace[:, 0:6].view(torch.int32),
+                pack2(gspace[:, 6:7], gspace[:, 7:8]),
+                gspace[:, 8:9].view(torch.int32),
             ],
-            dim=0,
+            dim=1,
         )
     return gspace
 
@@ -862,14 +864,14 @@ def composite_bwd(
     pixels have α = 0 and add exact zeros; with a strided config the same
     ``offsets``.  Wireframe mode has no backward.
 
-    Returns the gradient address space: ``(9, g_pad)`` float32 whose column
-    ``grad_base[t] + pos`` holds, for position ``pos`` of tile ``t``'s
-    segment, the sums over the tile's 1024 pixels in the row order of
-    ``N_SUMS``; for ``payload_dtype="packed"`` the ``(8, g_pad)`` int32 rows
+    Returns the gradient address space, pair-major: ``(g_pad, 9)`` float32
+    whose row ``grad_base[t] + pos`` holds, for position ``pos`` of tile
+    ``t``'s segment, the sums over the tile's 1024 pixels in the order of
+    ``N_SUMS``; for ``payload_dtype="packed"`` ``(g_pad, 8)`` int32 rows
     ``[Σdp2·dx Σdp2·dy Σdp2·dx² Σdp2·dxdy Σdp2·dy² Σdc_r·w (Σdc_g·w, Σdc_b·w)
-    Σdp2]`` with the pair in row 6 rounded to bf16 (nearest even) and the rest
-    bit-cast.  Positions before ``phi``, from ``used`` on, and every column no
-    tile owns hold exact zeros.
+    Σdp2]`` with the pair in word 6 rounded to bf16 (nearest even) and the
+    rest bit-cast, one 32-byte row a pair.  Positions before ``phi``, from
+    ``used`` on, and every row no tile owns hold exact zeros.
 
     On CUDA tensors this launches the kernel (or raises); on CPU tensors it
     takes :func:`composite_bwd_plain`.
@@ -918,9 +920,10 @@ def _composite_bwd_cuda(fields, pair_splat, tile_base, tile_phi, tile_span, used
     if config.chunk % 8 != 0:
         raise ValueError("the backward kernel walks a chunk in sub-blocks of 8 pairs")
     dev = fields.device
-    # Zero-filled once: chunks the forward never walked are never touched.
-    rows, dt = (G_ROWS_PACKED, torch.int32) if packed else (N_SUMS, torch.float32)
-    gspace = torch.zeros((rows, g_pad), dtype=dt, device=dev)
+    # Pair-major, zero-filled once: chunks the forward never walked are never
+    # touched.
+    words, dt = (G_ROWS_PACKED, torch.int32) if packed else (N_SUMS, torch.float32)
+    gspace = torch.zeros((g_pad, words), dtype=dt, device=dev)
     # Longest walk first: one sort of the (T,) stop counters.
     order = torch.argsort(used, descending=True).to(torch.int32)
     skipped = torch.zeros((1,), dtype=torch.int32, device=dev) if audit else None
@@ -931,7 +934,7 @@ def _composite_bwd_cuda(fields, pair_splat, tile_base, tile_phi, tile_span, used
             int(depth), bg_depth.data_ptr() if depth else None,
             pair_splat.data_ptr(), tile_base.data_ptr(), tile_phi.data_ptr(), tile_span.data_ptr(),
             used.data_ptr(), grad_base.data_ptr(), d_out.data_ptr(), tchk.data_ptr(),
-            gspace.data_ptr(), g_pad,
+            gspace.data_ptr(),
             nty, ntx, height, width, config.chunk, max_chunks(config),
             config.max_alpha, *mapping, order.data_ptr(), None if skipped is None else skipped.data_ptr(),
             torch.cuda.current_stream().cuda_stream,

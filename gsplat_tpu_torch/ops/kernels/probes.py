@@ -8,7 +8,11 @@ and ``gather_probe`` the three probe kernels of
 kernels of ``csrc/probes.cu`` (see its notes).  Both compute a value their
 plain versions below recompute, so a wrong kernel is caught; what they are
 for is their time, which ``utils/sol_calibrate.py`` and
-``utils/profile_gather.py`` take.
+``utils/profile_gather.py`` take.  The column read and the column write are
+scheduled around the card's L2: a block stages ``GATHER_TILE`` of its
+queries' columns in shared memory and sweeps the 16 rows over them, and the
+grid is one wave of ``gather_blocks`` blocks, so the blocks in flight share
+one or two rows of the matrix.
 
 On CUDA tensors the wrappers launch the kernels (or raise); on CPU tensors
 they take the plain versions.
@@ -27,6 +31,7 @@ GATHER_ACCESSES = ("contiguous", "column", "row", "column_write")
 ILP = 8          # independent chains a thread
 PROBE_ROWS = 16  # rows of the probed payload matrix
 THREADS = 256
+GATHER_TILE = 4096  # queries a block of the column read and write stages at a time
 # vpu_rate's constants: acc = acc * FMA_A + FMA_B
 FMA_A = 1.0000001
 FMA_B = 0.0000001
@@ -47,8 +52,10 @@ def _library():
         ]
         lib.gsplat_alu_probe.restype = ctypes.c_int
         lib.gsplat_gather_probe.argtypes = [
-            p, p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, p, ctypes.c_int, p,
+            p, p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, p, p, ctypes.c_int, p,
         ]
+        lib.gsplat_gather_sweep_blocks_per_sm.argtypes = [ctypes.c_int]
+        lib.gsplat_gather_sweep_blocks_per_sm.restype = ctypes.c_int
         lib.gsplat_gather_probe.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -174,14 +181,18 @@ def gather_probe(mat: torch.Tensor, idx: torch.Tensor, access: str):
         return gather_probe_plain(mat, idx, access)
     if not (mat.is_contiguous() and idx.is_contiguous()):
         raise ValueError("mat and idx must be contiguous")
-    blocks = 8 * torch.cuda.get_device_properties(mat.device).multi_processor_count
+    blocks = gather_blocks(mat.device, access)
     partial = torch.empty((blocks,), dtype=torch.float64, device=mat.device)
+    steps_done = None
+    if access == "column_write":
+        span = -(-idx.numel() // blocks)
+        steps_done = torch.zeros((-(-span // GATHER_TILE) * PROBE_ROWS,), dtype=torch.int32, device=mat.device)
     lib = _library()
     with torch.cuda.device(mat.device):
         err = lib.gsplat_gather_probe(
             mat.data_ptr(), idx.data_ptr(), _n_cols(mat, access), idx.numel(),
-            GATHER_ACCESSES.index(access), partial.data_ptr(), blocks,
-            torch.cuda.current_stream().cuda_stream,
+            GATHER_ACCESSES.index(access), None if steps_done is None else steps_done.data_ptr(),
+            partial.data_ptr(), blocks, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"gsplat_gather_probe launch failed: CUDA error {err}")
@@ -189,6 +200,20 @@ def gather_probe(mat: torch.Tensor, idx: torch.Tensor, access: str):
     if access == "column_write":
         return mat
     return partial.sum() if idx.numel() else partial.new_zeros(())
+
+
+def gather_blocks(device, access: str) -> int:
+    """Blocks of one ``gather_probe`` launch (CUDA): 8 an SM for the
+    contiguous and the row access (grid stride); for the column read and
+    write as many as stay resident, one wave."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if access not in ("column", "column_write"):
+        return 8 * sms
+    with torch.cuda.device(device):
+        per_sm = _library().gsplat_gather_sweep_blocks_per_sm(int(access == "column_write"))
+    if per_sm <= 0:
+        raise RuntimeError(f"gather {access}: the occupancy query failed")
+    return per_sm * sms
 
 
 def gather_bytes(p: int, access: str) -> int:

@@ -1,10 +1,10 @@
-"""Segmented column sum: per-pair gradient sums → per-splat sums.
+"""Segmented row sum: per-pair gradient sums → per-splat sums.
 
 ``segsum_by_splat`` replaces the TPU kernel ``gsplat_tpu/ops/pallas/segsum.py``
 (``_segsum_kernel``, entry ``segsum_by_splat``) with the hand-written CUDA
 kernel in ``csrc/segsum.cu``.  What it computes is the same: every depth
 rank's pairs are a contiguous window ``[exp_offsets[r], +exp_counts[r])`` of
-the expansion order, and the nine moment rows of those pairs are summed into
+the expansion order, and the nine moment sums of those pairs are summed into
 column ``r`` (or ``order[r]``) of a ``(9, N)`` matrix.
 
 What differs.  The TPU path first gathered the gradient address space into
@@ -12,12 +12,16 @@ two expansion-order matrices through ``dest_of_exp`` and then reduced them
 with a one-hot matrix product (with the operand split in three bf16 terms and
 the rank carried as a float row).  Here the readback is part of the function:
 the kernel reads ``dest_of_exp[j]`` itself, skips dropped pairs (negative
-entries: exact zero), fetches that column of the gradient space and, in packed
-mode, unpacks row 6 — the expansion-order matrices never exist in device
+entries: exact zero), fetches that row of the gradient space and, in packed
+mode, unpacks word 6 — the expansion-order matrices never exist in device
 memory, and the reduction is a plain segmented sum over the window.
 
-What bounds it: bytes — nine scattered 4-byte reads per pair (one 32-byte
-sector each), against one add per value.
+The gradient space is pair-major: ``(G, 8)`` int32 packed, ``(G, 9)`` float32
+otherwise, one row a pair slot.  What bounds the kernel: bytes — one
+scattered 32-byte sector a kept pair in packed mode (two 16-byte loads), two
+sectors for the 36-byte float32 row, against one add per value; beside them
+``dest_of_exp``, the windows and the ``(9, N)`` output.  (Before the
+pair-major layout every pair cost eight or nine sectors, one a row.)
 
 The summation order within a splat is fixed (a group of four lanes strides the
 window, each lane adding in ascending pair order, then a fixed two-step
@@ -45,7 +49,7 @@ def _library():
         lib = _build.load("segsum")
         p = ctypes.c_void_p
         lib.gsplat_segsum.argtypes = [
-            p, ctypes.c_longlong, ctypes.c_int, p, ctypes.c_int, p, p, p, p, ctypes.c_int, p,
+            p, ctypes.c_int, p, ctypes.c_int, p, p, p, p, ctypes.c_int, p,
         ]
         lib.gsplat_segsum.restype = ctypes.c_int
         _lib = lib
@@ -53,11 +57,14 @@ def _library():
 
 
 def _check(grad_space, dest_of_exp, exp_offsets, exp_counts, order, packed):
-    rows, dt = (G_ROWS_PACKED, torch.int32) if packed else (N_SUMS, torch.float32)
-    if grad_space.dim() != 2 or grad_space.shape[0] != rows or grad_space.dtype != dt:
+    words, dt = (G_ROWS_PACKED, torch.int32) if packed else (N_SUMS, torch.float32)
+    if grad_space.dim() != 2 or grad_space.shape[1] != words or grad_space.dtype != dt:
         raise TypeError(
-            f"grad_space: expected a ({rows}, G) {dt} matrix, got {tuple(grad_space.shape)} {grad_space.dtype}"
+            f"grad_space: expected a pair-major (G, {words}) {dt} matrix, "
+            f"got {tuple(grad_space.shape)} {grad_space.dtype}"
         )
+    if not grad_space.is_contiguous():
+        raise ValueError("grad_space must be contiguous (one row a pair slot)")
     n = exp_offsets.shape[0]
     named = [("dest_of_exp", dest_of_exp, None), ("exp_offsets", exp_offsets, n), ("exp_counts", exp_counts, n)]
     if order is not None:
@@ -80,7 +87,7 @@ def segsum_by_splat_plain(
     order: torch.Tensor = None,
     packed: bool = False,
 ) -> torch.Tensor:
-    """Plain PyTorch version: gather the kept pairs' columns, find each
+    """Plain PyTorch version: gather the kept pairs' rows, find each
     expansion pair's rank from the windows' ends, and ``index_add_`` by rank."""
     _check(grad_space, dest_of_exp, exp_offsets, exp_counts, order, packed)
     dev = grad_space.device
@@ -90,17 +97,17 @@ def segsum_by_splat_plain(
     if n == 0 or budget == 0:
         return out
     keep = dest_of_exp >= 0
-    cols = grad_space[:, torch.where(keep, dest_of_exp, 0).long()]
+    rows = grad_space[torch.where(keep, dest_of_exp, 0).long()]
     if packed:
-        cg, cb = unpack2(cols[6:7])
-        cols = torch.cat([cols[0:6].view(torch.float32), cg, cb, cols[7:8].view(torch.float32)], dim=0)
+        cg, cb = unpack2(rows[:, 6:7])
+        rows = torch.cat([rows[:, 0:6].view(torch.float32), cg, cb, rows[:, 7:8].view(torch.float32)], dim=1)
     # Rank of expansion pair j: the number of windows that end at or before j
     # (the ends are the inclusive prefix sum of the counts).
     ends = exp_offsets + exp_counts
     j = torch.arange(budget, dtype=torch.int32, device=dev)
     rank = torch.searchsorted(ends, j, right=True)
     live = keep & (rank < n)
-    out.index_add_(1, rank[live], cols[:, live])
+    out.index_add_(1, rank[live], rows[live].t())
     if order is not None:
         storage = torch.empty_like(out)
         storage[:, order.long()] = out
@@ -116,12 +123,12 @@ def segsum_by_splat(
     order: torch.Tensor = None,
     packed: bool = False,
 ) -> torch.Tensor:
-    """Sum the gradient-space columns of every splat's pairs.
+    """Sum the gradient-space rows of every splat's pairs.
 
     Args:
-      grad_space: what :func:`composite_bwd` returned — ``(9, G)`` float32, or
-        with ``packed`` the ``(8, G)`` int32 rows.
-      dest_of_exp: ``(budget,)`` int32 — gradient-space column of expansion
+      grad_space: what :func:`composite_bwd` returned — pair-major ``(G, 9)``
+        float32, or with ``packed`` ``(G, 8)`` int32; contiguous.
+      dest_of_exp: ``(budget,)`` int32 — gradient-space row of expansion
         pair ``j``; negative for a dropped pair, which adds nothing.
       exp_offsets / exp_counts: ``(N,)`` int32, indexed by depth rank — rank
         ``r`` owns expansion pairs ``[off, off + cnt)``, cut at ``budget``.
@@ -145,14 +152,18 @@ def segsum_by_splat(
         return out
     if order is not None:
         order = order.to(torch.int32)
-    for name, a in (("grad_space", grad_space), ("dest_of_exp", dest_of_exp), ("exp_offsets", exp_offsets),
+    for name, a in (("dest_of_exp", dest_of_exp), ("exp_offsets", exp_offsets),
                     ("exp_counts", exp_counts), ("order", order)):
         if a is not None and not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    # A packed row is one 32-byte sector only from a 32-byte aligned base (the
+    # caching allocator aligns to 512 bytes).
+    if packed and grad_space.data_ptr() % 32:
+        raise ValueError("a packed grad_space must start on a 32-byte boundary")
     lib = _library()
     with torch.cuda.device(grad_space.device):
         err = lib.gsplat_segsum(
-            grad_space.data_ptr(), grad_space.shape[1], int(packed),
+            grad_space.data_ptr(), int(packed),
             dest_of_exp.data_ptr(), dest_of_exp.shape[0],
             exp_offsets.data_ptr(), exp_counts.data_ptr(),
             order.data_ptr() if order is not None else None,

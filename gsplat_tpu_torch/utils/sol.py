@@ -51,7 +51,10 @@ H100 = {
     "sm_clock_hz": 1.9800e+09,     # SM clock nvidia-smi read during the ALU probes
     "hbm_bw": 2.9641e+12,          # B/s, 256 MB read + write
     "sort_rate": 1.0242e+10,       # (int32 key, int32 payload) pairs/s at 2,359,296
-    "column_gather_rate": 4.3010e+09,  # queries/s: 16 rows at stride N, the path's indices
+    # queries/s: 16 rows at stride N, the path's indices, under the probe's
+    # L2-resident row sweep (`python -m gsplat_tpu_torch.utils.profile_gather`
+    # on an NVIDIA H100 80GB HBM3, 700.00 W; 4.3010e+09 before the sweep)
+    "column_gather_rate": 7.9537e+09,
     "row_gather_rate": 3.9713e+10,     # queries/s: one 64-byte row of (N, 16), same indices
     "measured_on": "NVIDIA H100 80GB HBM3, 700.00 W",
     "source": "python -m gsplat_tpu_torch.utils.sol_calibrate",

@@ -1,9 +1,12 @@
 """The port's checkpointed forward and backward compositor (their plain
 versions, which the wrappers take on CPU tensors) against the JAX package's
 Pallas kernels in interpret mode, on the JAX package's own binned pairs; and
-the two repaired gradients (``round_bf16``, ``permute_cols``)."""
+the two repaired gradients (``round_bf16``, ``permute_cols``).  The JAX
+package's gradient space is (R, g_pad) rows; the port's is pair-major,
+(g_pad, R), so the JAX side is transposed to meet it."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -45,9 +48,11 @@ def _tiles_to_row_major(x):
     return x.reshape(lead + (1024,))
 
 
+@functools.lru_cache(maxsize=None)
 def _case(payload_dtype="float32", soft=False, eps=0.0, opaque=False, n=150, seed=0):
+    """Binned pairs, forward with checkpoints and backward, from both packages
+    (cached: the tests only read it)."""
     eye = (0.2, 0.4, 1.0) if opaque else (0.2, 0.4, 3.0)  # close: every pixel of a tile is covered
-    """Binned pairs, forward with checkpoints and backward, from both packages."""
     jcfg = gj.RenderConfig(tile_capacity=512, transmittance_eps=eps, payload_dtype=payload_dtype,
                            soft_cutoff=soft)
     jsplats, jcam = jax_scene(n=n, seed=seed, eye=eye)
@@ -73,7 +78,8 @@ def _case(payload_dtype="float32", soft=False, eps=0.0, opaque=False, n=150, see
                     span=np.asarray(jb.tile_span), grad_base=np.asarray(jb.grad_base),
                     phi=np.asarray(jb.tile_phi),
                     tchk=_tiles_to_row_major(np.asarray(tchk)).reshape(nty * ntx, -1, 1024),
-                    gspace=np.asarray(gspace))
+                    gspace=np.ascontiguousarray(np.asarray(gspace)[:_words(payload_dtype == "packed")].T),
+                    grad_rows=np.asarray(gspace).shape[0])
 
     # port: the wrappers on CPU tensors (their plain versions)
     cfg = to_config(jcfg)
@@ -88,12 +94,55 @@ def _case(payload_dtype="float32", soft=False, eps=0.0, opaque=False, n=150, see
     return jax_side, port_side, jcfg
 
 
+def _words(packed):
+    return tk.G_ROWS_PACKED if packed else tk.N_SUMS
+
+
 def _rows(gspace, packed):
+    """A pair-major space as nine float32 rows (9, g_pad), one a sum."""
     if not packed:
-        return gspace[:9]
-    g = torch.from_numpy(np.array(gspace))
-    cg, cb = tk.unpack2(g[6:7])
-    return torch.cat([g[0:6].view(torch.float32), cg, cb, g[7:8].view(torch.float32)]).numpy()
+        return gspace.T
+    g = torch.from_numpy(np.ascontiguousarray(gspace))
+    cg, cb = tk.unpack2(g[:, 6])
+    return torch.cat([g[:, 0:6].view(torch.float32).t(), cg[None], cb[None],
+                      g[:, 7:8].view(torch.float32).t()]).numpy()
+
+
+def _assert_space_close(a, b, packed, name=""):
+    """Nine rows of the JAX side ``a`` against the port's ``b`` (both (9, G))."""
+    for r in range(9):
+        scale = np.abs(a[r]).max()
+        assert scale > 0, (name, r)
+        if packed and r in (6, 7):  # two bf16 halves of one word: one step of an 8-bit mantissa
+            tol = np.abs(a[r]) * 2.0 ** -7 + ROW_TOL * scale
+            assert (np.abs(b[r] - a[r]) <= tol).all(), (name, r)
+        else:
+            assert np.abs(b[r] - a[r]).max() <= _row_tol(r) * scale, (name, r, np.abs(b[r] - a[r]).max(), scale)
+
+
+def _written(j, p):
+    """Rows of the gradient space some tile's walk owns: [grad_base + phi,
+    grad_base + used) of every tile."""
+    written = np.zeros(p["gspace"].shape[0], bool)
+    for gb, phi, used in zip(j["grad_base"], j["phi"], p["used"]):
+        written[gb + phi: gb + used] = True
+    return written
+
+
+def _assert_pair_major(j, p, jcfg, packed):
+    """The port's space is one contiguous row a pair slot, (g_pad, 9) float32
+    or (g_pad, 8) int32, holding the JAX package's column of that slot; the
+    rows no walk owns are exact zeros on both sides."""
+    words = _words(packed)
+    space = p["gspace"]
+    g_pad = space.shape[0]
+    assert space.shape == (g_pad, words) == j["gspace"].shape and j["grad_rows"] >= words
+    assert space.flags["C_CONTIGUOUS"] and space.strides == (4 * words, 4)
+    assert space.dtype == (np.int32 if packed else np.float32)
+    assert g_pad % jcfg.chunk == 0
+    written = _written(j, p)
+    assert written.any()
+    assert not space[~written].any() and not j["gspace"][~written].any()
 
 
 @pytest.mark.parametrize("name,kw", [
@@ -110,38 +159,24 @@ def test_checkpoints_and_gradient_space_match_pallas_interpret(name, kw):
     for tile, k in enumerate(nused):
         np.testing.assert_allclose(p["tchk"][tile, :k], j["tchk"][tile, :k], atol=1e-6,
                                    err_msg=f"tile {tile}")
-    assert p["gspace"].shape == j["gspace"][:9].shape and p["gspace"].dtype == np.float32
-    for r in range(9):
-        a, b = j["gspace"][r], p["gspace"][r]
-        scale = np.abs(a).max()
-        assert scale > 0, r
-        assert np.abs(b - a).max() <= _row_tol(r) * scale, (name, r, np.abs(b - a).max(), scale)
+    _assert_pair_major(j, p, jcfg, False)
+    _assert_space_close(_rows(j["gspace"], False), _rows(p["gspace"], False), False, name)
     if name == "early_stop":
         assert (j["used"] < j["span"]).any()  # the stop did fire
 
 
 def test_packed_gradient_space_matches_pallas_interpret():
-    j, p, _ = _case(payload_dtype="packed", n=400, seed=1)
-    assert p["gspace"].dtype == np.int32 and p["gspace"].shape == j["gspace"].shape
-    a, b = _rows(j["gspace"], True), _rows(p["gspace"], True)
-    for r in range(9):
-        scale = np.abs(a[r]).max()
-        assert scale > 0, r
-        if r in (6, 7):  # two bf16 halves of one word: one step of an 8-bit mantissa
-            tol = np.abs(a[r]) * 2.0 ** -7 + ROW_TOL * scale
-            assert (np.abs(b[r] - a[r]) <= tol).all(), r
-        else:
-            assert np.abs(b[r] - a[r]).max() <= _row_tol(r) * scale, (r, np.abs(b[r] - a[r]).max(), scale)
+    j, p, jcfg = _case(payload_dtype="packed", n=400, seed=1)
+    _assert_pair_major(j, p, jcfg, True)
+    _assert_space_close(_rows(j["gspace"], True), _rows(p["gspace"], True), True)
 
 
 def test_unwalked_positions_hold_exact_zeros():
     j, p, _ = _case(eps=1e-3, opaque=True, n=300)
     assert (p["used"] < j["span"]).any()
-    written = np.zeros(p["gspace"].shape[1], bool)
-    for gb, phi, used in zip(j["grad_base"], j["phi"], p["used"]):
-        written[gb + phi: gb + used] = True
-    assert np.abs(p["gspace"][:, ~written]).max() == 0.0
-    assert np.abs(p["gspace"][:, written]).max() > 0.0
+    written = _written(j, p)
+    assert np.abs(p["gspace"][~written]).max() == 0.0
+    assert np.abs(p["gspace"][written]).max() > 0.0
 
 
 def test_round_bf16_forward_bits_and_straight_through_gradient():

@@ -59,7 +59,7 @@ def test_render_kernel_path_matches_plain_renderers(card, payload, eps):
     assert float((main - tiles).abs().max()) < tol
 
 
-def _backward_case(card, payload, eps, soft=False):
+def _backward_case(card, payload, eps, soft=False, eye=(0.2, 0.4, 3.0)):
     from gsplat_tpu_torch.ops import binning
     from gsplat_tpu_torch.ops.projection import project_splats
     from gsplat_tpu_torch.ops.rasterize_ref import quantize_payload, sanitize_projected
@@ -67,7 +67,7 @@ def _backward_case(card, payload, eps, soft=False):
 
     g = torch.Generator(device=card).manual_seed(1)
     splats = gt.random_splats(g, 5000, extent=0.8, scale_range=(0.01, 0.05), sh_scale=0.2, device=card)
-    cam = gt.make_camera([0.2, 0.4, 3.0], [0, 0, 0], 200, 120, device=card)
+    cam = gt.make_camera(list(eye), [0, 0, 0], 200, 120, device=card)
     cfg = gt.RenderConfig(payload_dtype=payload, transmittance_eps=eps, pairs_per_splat=8.0, soft_cutoff=soft)
     p = project_splats(splats, cam, cfg.sh_order, tight_footprint=not soft)
     p = sort_by_depth(quantize_payload(sanitize_projected(p), cfg))
@@ -81,10 +81,13 @@ def _backward_case(card, payload, eps, soft=False):
 
 
 def _nine_rows(gspace, packed):
+    """The pair-major space, (G, 9) float32 or (G, 8) int32, as nine float32
+    rows (9, G)."""
     if not packed:
-        return gspace
-    cg, cb = kcomp.unpack2(gspace[6:7])
-    return torch.cat([gspace[0:6].view(torch.float32), cg, cb, gspace[7:8].view(torch.float32)])
+        return gspace.t()
+    cg, cb = kcomp.unpack2(gspace[:, 6])
+    return torch.cat([gspace[:, 0:6].view(torch.float32).t(), cg[None], cb[None],
+                      gspace[:, 7:8].view(torch.float32).t()])
 
 
 @pytest.mark.parametrize("payload", ["float32", "packed"])
@@ -115,6 +118,36 @@ def test_checkpoint_variant_is_bit_equal_and_backward_matches_plain(card, payloa
     for r in range(9):
         assert float((m[r] - m_plain[r]).abs().max()) <= 1e-6 * float(m_plain[r].abs().max()), r
     assert torch.equal(m, ksegsum.segsum_by_splat(got, b.dest_of_exp, b.exp_offsets, b.exp_counts, packed=packed))
+
+
+@pytest.mark.parametrize("payload", ["float32", "packed"])
+def test_segsum_on_the_pair_major_space_matches_plain(card, payload):
+    """A random pair-major space over real windows: within 1e-6 of the
+    plain version, two runs bit-equal, the storage order the rank order
+    permuted, empty ranks exact zeros, the (R, G) orientation refused."""
+    from gsplat_tpu_torch.ops.kernels import segsum as ksegsum
+
+    _, b, _, g_pad = _backward_case(card, payload, 0.0, eye=(0.2, 0.4, 1.0))  # close: some splats off screen
+    packed = payload == "packed"
+    g = torch.Generator(device=card).manual_seed(3)
+    space = torch.randn((g_pad, 9), generator=g, device=card)
+    if packed:
+        space = torch.cat([space[:, :6].view(torch.int32), kcomp.pack2(space[:, 6:7], space[:, 7:8]),
+                           space[:, 8:9].view(torch.int32)], dim=1)
+    args = (space, b.dest_of_exp, b.exp_offsets, b.exp_counts)
+    before = ksegsum.launches
+    got = ksegsum.segsum_by_splat(*args, packed=packed)
+    assert ksegsum.launches == before + 1
+    want = ksegsum.segsum_by_splat_plain(*args, packed=packed)
+    for r in range(9):
+        assert float((got[r] - want[r]).abs().max()) <= 1e-6 * float(want[r].abs().max()), r
+    assert torch.equal(got, ksegsum.segsum_by_splat(*args, packed=packed))
+    order = torch.randperm(b.exp_counts.shape[0], generator=g, device=card)
+    assert torch.equal(ksegsum.segsum_by_splat(*args, order=order, packed=packed)[:, order], got)
+    empty = b.exp_counts == 0
+    assert bool(empty.any()) and float(got[:, empty].abs().max()) == 0.0
+    with pytest.raises(TypeError):
+        ksegsum.segsum_by_splat(space.t().contiguous(), *args[1:], packed=packed)
 
 
 @pytest.mark.parametrize("payload", ["float32", "packed"])
@@ -235,6 +268,31 @@ def test_probes_match_plain(card):
         assert abs(got - want) <= 1e-9 * float(probes.gather_probe_plain(m.abs(), idx, access)), access
     assert torch.equal(probes.gather_probe(torch.zeros_like(mat), idx, "column_write"),
                        probes.gather_probe_plain(torch.zeros_like(mat), idx, "column_write"))
+
+
+@pytest.mark.parametrize("queries", ["one", "past_a_tile", "calibrate"])
+def test_gather_probe_column_sweep_matches_plain(card, queries):
+    """The column read and the column write (staged tiles swept row by row)
+    at one query, at a block span one past the staging tile, and at the
+    calibrate phase's shape: the read within 1e-9 of the summed magnitudes
+    and bit-equal between two runs, the write exactly."""
+    from gsplat_tpu_torch.ops.kernels import probes
+    from gsplat_tpu_torch.utils import sol_calibrate
+
+    n_cols = {"one": 1000, "past_a_tile": 1 << 16, "calibrate": sol_calibrate.N_COLS}[queries]
+    p = {"one": 1, "past_a_tile": probes.GATHER_TILE * probes.gather_blocks(card, "column") + 1,
+         "calibrate": sol_calibrate.SORT_PAIRS}[queries]
+    g = torch.Generator(device=card).manual_seed(6)
+    mat = torch.randn((16, n_cols), generator=g, device=card)
+    idx = torch.randint(0, n_cols, (p,), generator=g, device=card, dtype=torch.int32)
+    before = (probes.launches["column"], probes.launches["column_write"])
+    got = probes.gather_probe(mat, idx, "column")
+    assert torch.equal(got, probes.gather_probe(mat, idx, "column"))
+    want = float(probes.gather_probe_plain(mat, idx, "column"))
+    assert abs(float(got) - want) <= 1e-9 * float(probes.gather_probe_plain(mat.abs(), idx, "column"))
+    assert torch.equal(probes.gather_probe(torch.zeros_like(mat), idx, "column_write"),
+                       probes.gather_probe_plain(torch.zeros_like(mat), idx, "column_write"))
+    assert (probes.launches["column"], probes.launches["column_write"]) == (before[0] + 2, before[1] + 1)
 
 
 # (strides, offsets in tiles): the cyclic grids of the sharded renderer and a

@@ -1,6 +1,10 @@
 """The port's segment sum (its plain version, which the wrapper takes on CPU
 tensors) against the JAX package's Pallas kernel in interpret mode, fed the
-readback the JAX package builds with its two gathers."""
+readback the JAX package builds with its two gathers.  The JAX package keeps
+the gradient space as (9, G) rows; the port's is pair-major, (G, 9) float32
+or (G, 8) int32, so the port is handed the same numbers transposed."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +24,7 @@ from torch_port_helpers import j_projected, jax_scene, jax_sorted_fields, npy
 TOL = 1e-6
 
 
+@functools.lru_cache(maxsize=None)
 def _inputs(budget_override=0, n=400, seed=1, eye=(0.2, 0.4, 3.0)):
     jcfg = gj.RenderConfig(tile_capacity=512, transmittance_eps=0.0, pair_budget_override=budget_override)
     jsplats, jcam = jax_scene(n=n, seed=seed, eye=eye)
@@ -50,8 +55,9 @@ def _jax_sum(jb, gspace, order=None):
 
 
 def _port_sum(jb, gspace, order=None, packed=False, fn=segsum_by_splat):
+    """The port on the (R, G) space ``gspace`` handed over pair-major."""
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
-    return npy(fn(t(gspace), t(jb.dest_of_exp), t(jb.exp_offsets), t(jb.exp_counts),
+    return npy(fn(t(np.ascontiguousarray(np.asarray(gspace).T)), t(jb.dest_of_exp), t(jb.exp_offsets), t(jb.exp_counts),
                   order=None if order is None else t(order), packed=packed))
 
 
@@ -116,13 +122,37 @@ def test_packed_gradient_space_is_unpacked_on_the_way():
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     jb, gspace = _inputs()
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    space = t(np.ascontiguousarray(gspace.T))  # pair-major (G, 9)
     args = (t(jb.dest_of_exp), t(jb.exp_offsets), t(jb.exp_counts))
     with pytest.raises(TypeError):
-        segsum_by_splat(t(gspace[:8]), *args)                      # 8 float rows: not a gradient space
+        segsum_by_splat(space[:, :8].contiguous(), *args)          # 8 float words: not a gradient space
     with pytest.raises(TypeError):
-        segsum_by_splat(t(gspace), *args, packed=True)             # packed takes int32
+        segsum_by_splat(space, *args, packed=True)                 # packed takes int32
     with pytest.raises(TypeError):
-        segsum_by_splat(t(gspace), args[0].long(), args[1], args[2])
+        segsum_by_splat(space, args[0].long(), args[1], args[2])
     with pytest.raises(TypeError):
-        segsum_by_splat(t(gspace), args[0], args[1], args[2][:-1])
-    assert segsum_by_splat_plain(t(gspace), args[0], args[1][:0], args[2][:0]).shape == (9, 0)
+        segsum_by_splat(space, args[0], args[1], args[2][:-1])
+    assert segsum_by_splat_plain(space, args[0], args[1][:0], args[2][:0]).shape == (9, 0)
+
+
+def _small_windows():
+    """Three ranks over five pairs of a 12-slot space (one dropped pair)."""
+    dest = torch.tensor([3, 0, -1, 7, 11], dtype=torch.int32)
+    return dest, torch.tensor([0, 2, 3], dtype=torch.int32), torch.tensor([2, 1, 2], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["float32", "packed"])
+def test_wrapper_rejects_the_row_major_orientation_and_strided_spaces(packed):
+    words, dt = (8, torch.int32) if packed else (9, torch.float32)
+    space = torch.arange(12 * words, dtype=torch.int32).reshape(12, words).to(dt)
+    args = _small_windows()
+    want = segsum_by_splat(space, *args, packed=packed)
+    assert want.shape == (9, 3) and float(want.abs().max()) > 0
+    with pytest.raises(TypeError, match="pair-major"):
+        segsum_by_splat(space.t().contiguous(), *args, packed=packed)    # the (R, G) orientation
+    with pytest.raises(ValueError, match="contiguous"):
+        segsum_by_splat(space.t().contiguous().t(), *args, packed=packed)  # (G, R), but rows strided
+    wide = torch.zeros((12, 2 * words), dtype=dt)
+    wide[:, ::2] = space
+    with pytest.raises(ValueError, match="contiguous"):
+        segsum_by_splat(wide[:, ::2], *args, packed=packed)
