@@ -94,6 +94,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
              through the depth-tested render, three wireframe frames and three
              wire-over frames.  Launch counters are zeroed just before each
              part and read just after.
+  scene_path the host runtime at full width: the main path's scene written
+             with save_ply into a temporary directory (outside the repo)
+             and loaded back on the card with load_ply (positions within
+             1e-6, opacities within 1e-5: the JAX package's round-trip
+             gates), registered as two clusters (rows [0, n/2) and
+             [n/2, n)) in a SceneRegistry with the main path's settings and
+             a pair budget tuned on the loaded scene, and the five orbit
+             frames rendered through include_in_render_pass / render /
+             post_render, re-sorted every frame and then sorted once (a
+             movement threshold above the orbit's): launch counters zeroed
+             just before and read just after (2 scans + 1 forward a frame),
+             the registry's deferred dropped_pairs 0, each frame bit-equal
+             to render_cuda of the registry's cached rebased scene with its
+             origin camera and the order it used, at most 1e-3 of the
+             pixels beyond 2e-3 of the direct render of the loaded scene
+             (every frame re-sorted, frame 0 sorted once; the aged order's
+             share is printed); 4096 ray queries against a numpy slab
+             test (hits equal); the native helpers (built with g++) against
+             their plain versions.  Prints the save, load, geometry, frame
+             and overhead times beside the direct frame's.
+  examples   examples/render_ply_torch.py on that PLY at 1280x720 (an image
+             written, alpha not all zero) and examples/fit_scene_torch.py
+             --steps 20 (a falling loss), each in a child process.
+  ply_fit    the JAX package's PLY fit gate through the kernels: the
+             heavy-tailed 800-splat scene through save_ply and load_ply,
+             4 views at 96x96, a seeded perturbation, 120 Adam steps round
+             robin; view 0 must end above 26 dB and its start + 3 dB.
   calibrate  the speed-of-light constants measured on this card
              (gsplat_tpu_torch/utils/sol_calibrate.py: ALU probe, gather probe
              on the main path's indices and on random ones, torch.sort, HBM
@@ -111,6 +138,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              sectors beside its useful-byte bound, and its time on a float32
              space); the scans' device operations a call from a profiler
              trace; the strided rows at rank 0's inputs on the sharded path.
+             The scan and forward rows' launches are the main path's and the
+             scene path's registry frames (launches_by_path).
 
 python3 chip_smoke.py --frame-digest prints only the SHA-256 of the main
 path's first frame and of its forward kernel's image and stop counters, to
@@ -131,9 +160,11 @@ import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -1387,6 +1418,320 @@ def phase_host_scene(splats, cams, frames, main_cfg):
     return dcfg, bgd, wcfg, out
 
 
+# ----------------------------------------------------------------- host runtime
+
+# The JAX package's PLY round-trip gates (tests/test_fit_quality.py:57-62) and
+# its rebase gate (tests/test_scene.py:155-156).
+PLY_POS_TOL = 1e-6
+PLY_OPACITY_TOL = 1e-5
+REBASE_TOL = 2e-3
+RAYS = 4096
+EXAMPLE_TIMEOUT_S = 300
+
+
+def slab_test_numpy(lo, hi, org, dir_):
+    """The ray/bbox slab test in float32 numpy, written apart from
+    ops/queries.py: (hit, t_entry)."""
+    parallel = np.abs(dir_) <= np.float32(1e-30)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv = np.float32(1.0) / np.where(parallel, np.float32(1.0), dir_)
+        t0 = (lo - org) * inv
+        t1 = (hi - org) * inv
+    inside = (org >= lo) & (org <= hi)
+    inf = np.float32(np.inf)
+    lo_t = np.where(parallel, np.where(inside, -inf, inf), np.minimum(t0, t1))
+    hi_t = np.where(parallel, np.where(inside, inf, -inf), np.maximum(t0, t1))
+    t_near, t_far = lo_t.max(axis=-1), hi_t.min(axis=-1)
+    t_entry = np.maximum(t_near, np.float32(0.0))
+    return (t_far >= t_near) & (t_far >= 0.0), t_entry
+
+
+def check_ray_queries(loaded):
+    """intersect_rays_bbox on the card against the numpy slab test: hits
+    exactly equal, distances within 1e-6 of their size."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(13)
+    orgs = 4.0 * torch.randn((RAYS, 3), generator=g, device=DEV)
+    dirs = torch.randn((RAYS, 3), generator=g, device=DEV)
+    dirs[::16, 0] = 0.0   # parallel to the x slabs
+    dirs[::64, 2] = 0.0
+    ms, hit = cuda_time_ms(lambda: gt.intersect_rays_bbox(loaded, orgs, dirs), 10, warmup=2)
+    lo, hi = (t.cpu().numpy() for t in loaded.bbox())
+    want_hit, want_t = slab_test_numpy(lo, hi, orgs.cpu().numpy(), dirs.cpu().numpy())
+    got_hit, got_t = hit.hit.cpu().numpy(), hit.distance.cpu().numpy()
+    if not np.array_equal(got_hit, want_hit):
+        fail(f"ray queries: {int((got_hit != want_hit).sum())} of {RAYS} hits differ from the numpy slab test")
+    t_err = float(np.abs(got_t[got_hit] - want_t[got_hit]).max(initial=0.0))
+    if not t_err <= 1e-6 * max(1.0, float(np.abs(want_t[got_hit]).max(initial=0.0))):
+        fail(f"ray queries: distances differ by {t_err:.3e}")
+    return {"rays": RAYS, "hits": int(got_hit.sum()), "max_abs_distance_err": t_err, "ms": ms}
+
+
+def check_native(loaded):
+    """io/native.py built with g++ on this machine: the radix argsort of the
+    depth keys and the Morton order of the positions against their plain
+    versions."""
+    from gsplat_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    pos = loaded.pos.cpu().numpy()
+    keys = ((pos - np.float32(0.3)) ** 2).sum(axis=0).astype(np.float32)
+    t0 = time.perf_counter()
+    order = native.radix_argsort(keys)
+    sort_s = time.perf_counter() - t0
+    if not np.array_equal(order, native.radix_argsort_plain(keys)):
+        fail("native radix_argsort differs from its plain version on the depth keys")
+    t0 = time.perf_counter()
+    morton = native.morton_order(pos)
+    morton_s = time.perf_counter() - t0
+    if not np.array_equal(np.sort(morton), np.arange(pos.shape[1], dtype=np.int32)):
+        fail("native morton_order is not a permutation")
+    return {"build_or_load_s": build_s, "radix_argsort_s": sort_s, "morton_order_s": morton_s,
+            "keys": int(keys.shape[0])}
+
+
+def registry_run(reg, ids, cams, label):
+    """Five registry frames (include, render, post_render), the launch
+    counters zeroed just before and read just after; each frame's image,
+    depth order and deferred stats kept for the checks."""
+    zero_counters()
+    times, images, orders, stats = [], [], [], []
+    for cam in cams:
+        def frame():
+            for rid in ids:
+                reg.include_in_render_pass(rid)
+            image = reg.render(cam)
+            stats.append(reg._last_stats)
+            orders.append(reg._order)
+            reg.post_render()
+            return image
+        ms, image = cuda_time_ms(frame)
+        times.append(ms)
+        images.append(image)
+    counts = read_counters()
+    n = len(cams)
+    want = expect_counts(scan_i32_add=n, scan_i32_max=n, scan_i32=2 * n, composite_fwd=n)
+    if counts != want:
+        fail(f"scene_path {label}: launch counts {counts}, expected {want}")
+    dropped = [int(s.dropped_pairs) for s in stats]
+    if any(dropped):
+        fail(f"scene_path {label}: dropped_pairs {dropped} (the registry's deferred stats)")
+    return times, images, orders, counts, dropped
+
+
+def phase_scene_path(splats, cams, tmp, card):
+    """The host runtime at full width: the 1M-splat scene written to a PLY,
+    loaded back on the card, registered as two clusters and rendered through
+    SceneRegistry; ray queries; the native helpers."""
+    n = splats.count
+    path = tmp / "bench_scene.ply"
+    t0 = time.perf_counter()
+    gt.save_ply(path, splats)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = gt.load_ply(path, device=DEV)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    pos_err = float((loaded.pos - splats.pos).abs().max())
+    op_err = float((loaded.opacity - splats.opacity).abs().max())
+    if not (pos_err <= PLY_POS_TOL and op_err <= PLY_OPACITY_TOL):
+        fail(f"PLY round trip: pos {pos_err:.3e} (gate {PLY_POS_TOL}), opacity {op_err:.3e} (gate {PLY_OPACITY_TOL})")
+
+    # two clusters, rows [0, n/2) and [n/2, n): their concat is the loaded scene's row order
+    d = gt.to_numpy_dict(loaded)
+    half = n // 2
+    halves = [gt.splats_from_numpy({k: v[:half] for k, v in d.items()}, device=DEV),
+              gt.splats_from_numpy({k: v[half:] for k, v in d.items()}, device=DEV)]
+    del d
+    cfg = gt.tune_pair_budget(loaded, cams, gt.RenderConfig(payload_dtype="packed", transmittance_eps=1e-3),
+                              headroom=1.02)
+    render_cfg = dataclasses.replace(cfg, warn_on_drop=False)  # the registry's own render config
+    # what the registry accumulates over the orbit: each frame's squared
+    # distance from the camera of the last sort (frame 0)
+    moved = sum(float(((c.host_position - cams[0].host_position) ** 2).sum()) for c in cams[1:])
+
+    def new_registry(threshold):
+        reg = gt.SceneRegistry(cfg)
+        reg.sort_movement_threshold = threshold
+        return reg, [reg.register_update(f"half_{k}", h) for k, h in enumerate(halves)]
+
+    warm, warm_ids = new_registry(0.0)
+    for k in range(WARMUP_FRAMES):
+        for rid in warm_ids:
+            warm.include_in_render_pass(rid)
+        warm.render(cams[k % len(cams)])
+        warm.post_render()
+    del warm
+    torch.cuda.synchronize()
+
+    direct_ms, direct = [], []
+    for cam in cams:
+        ms, img = cuda_time_ms(lambda: gt.render(loaded, cam, cfg, backend="auto"))
+        direct_ms.append(ms)
+        direct.append(img)
+
+    out = {}
+    for label, threshold in (("resort_every_frame", 0.0), ("one_sort", 2.0 * moved + 1e-3)):
+        reg, ids = new_registry(threshold)
+        for rid in ids:
+            reg.include_in_render_pass(rid)
+        geometry_ms, built = cuda_time_ms(reg.generate_render_geometry)
+        if not built or reg._cached.count != n:
+            fail(f"scene_path {label}: the geometry was not built ({built}, {reg._cached.count} splats)")
+        times, images, orders, counts, dropped = registry_run(reg, ids, cams, label)
+        if threshold > 0.0 and not all(o is orders[0] for o in orders):
+            fail(f"scene_path {label}: the depth order was recomputed under a threshold of {threshold}")
+        if threshold == 0.0 and any(a is b for a, b in zip(orders, orders[1:])):
+            fail(f"scene_path {label}: a frame reused the depth order at threshold 0")
+        # (a) each frame bit-equal to render_cuda of the cached, rebased scene
+        # with its origin camera and the order it used
+        bit_equal = []
+        cached_ms = []
+        for cam, image, order in zip(cams, images, orders):
+            ocam = reg._origin_camera(cam)
+            ms, (want, _) = cuda_time_ms(
+                lambda: gt.render_cuda(reg._cached, ocam, render_cfg, order=order, with_stats=True))
+            cached_ms.append(ms)
+            bit_equal.append(bool(torch.equal(image, want)))
+            check_frame(image, cam.width, cam.height, f"scene_path {label}")
+        if not all(bit_equal):
+            fail(f"scene_path {label}: registry frames bit-equal to render_cuda of the cached scene: {bit_equal}")
+        origin_ms = cuda_time_ms(lambda: reg._origin_camera(cams[-1]), 20, warmup=2)[0]
+        diffs = [(image - ref).abs().amax(dim=-1) for image, ref in zip(images, direct)]
+        max_abs = [float(x.max()) for x in diffs]
+        share = [float((x > REBASE_TOL).float().mean()) for x in diffs]
+        out[label] = {
+            "sort_movement_threshold": threshold, "first_geometry_ms": geometry_ms, "frame_ms": times,
+            "median_frame_ms": statistics.median(times), "cached_render_cuda_ms": cached_ms,
+            "median_cached_render_cuda_ms": statistics.median(cached_ms),
+            "registry_overhead_ms": statistics.median(times) - statistics.median(cached_ms),
+            "origin_camera_ms": origin_ms, "dropped_pairs": dropped, "launches": counts,
+            "bit_equal_to_render_cuda": bit_equal, "sorts": len({id(o) for o in orders}),
+            "vs_direct_max_abs": max_abs, "vs_direct_share_over_tol": share,
+        }
+        del reg
+    # The rebase's rounding may flip single pixels across the 1/255 alpha
+    # cutoff; with the order fresh each frame at most WIRE_EDGE_SHARE of them.
+    # One sort ages the order over the orbit: printed, and held at frame 0.
+    a, b = out["resort_every_frame"], out["one_sort"]
+    if max(a["vs_direct_share_over_tol"]) > WIRE_EDGE_SHARE or b["vs_direct_share_over_tol"][0] > WIRE_EDGE_SHARE:
+        fail(f"scene_path: pixels beyond {REBASE_TOL} of the direct render: re-sorted {a['vs_direct_share_over_tol']}, "
+             f"one sort {b['vs_direct_share_over_tol']} (allowed {WIRE_EDGE_SHARE})")
+    rays = check_ray_queries(loaded)
+    host = check_native(loaded)
+    emit("scene_path", card=card, splats=n, size=f"{cams[0].width}x{cams[0].height}", clusters=[half, n - half],
+         ply_bytes=path.stat().st_size, save_ply_s=save_s, load_ply_s=load_s, ply_pos_err=pos_err,
+         ply_opacity_err=op_err, payload_dtype=cfg.payload_dtype, transmittance_eps=cfg.transmittance_eps,
+         pair_budget=cfg.pair_budget(n), orbit_movement_sq=moved, direct_frame_ms=direct_ms,
+         median_direct_frame_ms=statistics.median(direct_ms), rebase_tolerance=REBASE_TOL,
+         share_allowed=WIRE_EDGE_SHARE, ray_queries=rays, native=host, **out)
+    counts = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+    return counts
+
+
+def run_example(args, label):
+    """One of examples/*_torch.py in a child process; its output, or fail."""
+    cmd = [sys.executable, str(Path(__file__).resolve().parent / "examples" / args[0]), *args[1:]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+    if proc.returncode != 0:
+        fail(f"{label}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def phase_examples(ply, tmp):
+    """examples/render_ply_torch.py on the 1M-splat PLY at 1280x720 and
+    examples/fit_scene_torch.py --steps 20 at its default size."""
+    png = tmp / "render_ply_torch.png"
+    stdout, render_s = run_example(["render_ply_torch.py", str(ply), str(png), "--eye", "0", "0.4", "3",
+                                    "--width", "1280", "--height", "720"], "render_ply_torch.py")
+    written = png.stat().st_size if png.exists() else 0
+    alpha_max = float(next(line for line in stdout.splitlines() if line.startswith("alpha:")).split()[2].rstrip(","))
+    if not written or not alpha_max > 0.0:
+        fail(f"render_ply_torch.py: {written} bytes written, alpha max {alpha_max}")
+    stdout, fit_s = run_example(["fit_scene_torch.py", "--steps", "20"], "fit_scene_torch.py")
+    losses = [float(line.split()[3]) for line in stdout.splitlines() if line.startswith("step")]
+    if len(losses) < 2 or not losses[-1] < losses[0]:
+        fail(f"fit_scene_torch.py: loss did not fall: {losses}")
+    emit("examples", render_ply_torch={"size": "1280x720", "alpha_max": alpha_max, "image_bytes": written,
+                                       "seconds": render_s},
+         fit_scene_torch={"steps": 20, "losses": losses, "seconds": fit_s})
+
+
+def heavy_tailed_scene(n=800, seed=0):
+    """The JAX package's heavy-tailed fit scene (tests/test_fit_quality.py),
+    from the same numpy draws."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-0.7, 0.7, (n, 3)).astype(np.float32)
+    q = rng.normal(size=(n, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    scale = np.exp(rng.normal(-4.2, 0.8, (n, 3))).astype(np.float32)
+    opacity = (1.0 / (1.0 + np.exp(-rng.normal(0.5, 1.0, n)))).astype(np.float32)
+    color = rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32)
+    sh = (0.08 * rng.normal(size=(n, 15, 3))).astype(np.float32)
+    return gt.make_splats(pos, q, scale, opacity, color, sh, device=DEV)
+
+
+def phase_ply_fit(tmp, steps=120):
+    """The JAX package's PLY fit gate (tests/test_fit_quality.py:48-106) through
+    the kernels: the heavy-tailed 800-splat scene written with save_ply and
+    read with load_ply, 4 views at 96x96, a seeded perturbation, Adam over
+    120 steps round robin; view 0 must end above 26 dB and start + 3 dB."""
+    scene = heavy_tailed_scene()
+    path = tmp / "fit_scene.ply"
+    gt.save_ply(path, scene)
+    loaded = gt.load_ply(path, device=DEV)
+    pos_err = float((loaded.pos - scene.pos).abs().max())
+    op_err = float((loaded.opacity - scene.opacity).abs().max())
+    if not (pos_err <= PLY_POS_TOL and op_err <= PLY_OPACITY_TOL):
+        fail(f"fit PLY round trip: pos {pos_err:.3e}, opacity {op_err:.3e}")
+    cfg = gt.RenderConfig()
+    cams, targets = [], []
+    with torch.no_grad():
+        for v in range(4):
+            ang = 2 * np.pi * v / 4
+            cam = gt.make_camera([2.4 * np.sin(ang), 0.4, 2.4 * np.cos(ang)], [0, 0, 0], 96, 96, device=DEV)
+            img = gt.render(loaded, cam, cfg, backend="auto")
+            cams.append(cam)
+            targets.append(img[..., :3] + (1.0 - img[..., 3:4]))
+    n = loaded.count
+    g = torch.Generator(device=DEV)
+    g.manual_seed(5)
+    dpos = torch.randn((3, n), generator=g, device=DEV)
+    dcol = torch.randn((3, n), generator=g, device=DEV)
+    perturbed = dataclasses.replace(loaded, pos=loaded.pos + 0.015 * dpos,
+                                    color=torch.clamp(loaded.color + 0.1 * dcol, 0.0, 1.0))
+    params = gt.params_from_splats(perturbed)
+    opt = gt.default_optimizer(params, lr_pos=1.5e-3)
+    step_fns = [gt.make_train_step(opt, cam, cfg, backend="auto", lambda_dssim=0.2) for cam in cams]
+
+    def view0_psnr():
+        with torch.no_grad():
+            img = gt.render(gt.splats_from_params(params), cams[0], cfg, backend="auto")
+            return float(gt.psnr(img[..., :3] + (1.0 - img[..., 3:4]), targets[0]))
+
+    start = view0_psnr()
+    zero_counters()
+    times, losses = [], []
+    for it in range(steps):
+        ms, loss = cuda_time_ms(lambda: step_fns[it % 4](params, targets[it % 4]))
+        times.append(ms)
+        losses.append(float(loss))
+    counts = read_counters()
+    end = view0_psnr()
+    want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps, composite_fwd=steps,
+                         composite_fwd_checkpoint=steps, composite_bwd=steps, segsum=steps)
+    if counts != want:
+        fail(f"ply fit: launch counts {counts}, expected {want}")
+    if not (math.isfinite(end) and end > start + 3.0 and end > 26.0):
+        fail(f"ply fit: view-0 PSNR {start:.2f} -> {end:.2f} dB (gate: > start + 3 and > 26)")
+    emit("ply_fit", splats=n, views=4, size="96x96", steps=steps, lr_pos=1.5e-3, lambda_dssim=0.2,
+         start_psnr_db=start, end_psnr_db=end, first_loss=losses[0], last_loss=losses[-1],
+         median_step_ms=statistics.median(times), min_step_ms=min(times), launches=counts)
+
+
 def pairs_walked(used, b):
     """Live pair positions each tile walked before it stopped."""
     return int((torch.minimum(used, b.tile_span) - torch.where(b.tile_span > 0, b.tile_phi, 0)).clamp(min=0).sum())
@@ -1738,8 +2083,10 @@ def phase_probe_kernels(calib, by_probe, path_idx):
     return rows
 
 
-def phase_kernels(splats, cam, cfg, counts, train_counts):
-    """Each kernel at the main path's shapes: error, times, bound."""
+def phase_kernels(splats, cam, cfg, counts, train_counts, scene_counts):
+    """Each kernel at the main path's shapes: error, times, bound.  The scan
+    and forward rows' launches are the main path's frames and the scene
+    path's registry frames together (launches_by_path)."""
     n = splats.count
     budget = cfg.pair_budget(n)
     g = torch.Generator(device=DEV)
@@ -1773,7 +2120,9 @@ def phase_kernels(splats, cam, cfg, counts, train_counts):
         traced = traced_calls(lambda: kscan.scan_i32(nxt(), kind), 20)
         lib_traced = traced_calls(lambda: lib(nxt()), 20)
         row = {"name": f"scan_i32_{kind}", "route": "cuda", "source": "gsplat_tpu_torch/csrc/scan.cu",
-               "replaces": replaces, "launches": counts[f"scan_i32_{kind}"],
+               "replaces": replaces, "launches": counts[f"scan_i32_{kind}"] + scene_counts[f"scan_i32_{kind}"],
+               "launches_by_path": {"main_path": counts[f"scan_i32_{kind}"],
+                                    "scene_path": scene_counts[f"scan_i32_{kind}"]},
                "launches_train_path": train_counts[f"scan_i32_{kind}"], "length": length,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         row.update(bytes_bounds(8.0 * length))
@@ -1798,8 +2147,10 @@ def phase_kernels(splats, cam, cfg, counts, train_counts):
     nbytes = (payload.numel() + pair_splat.numel() + 3 * b.tile_base.numel()) * 4 \
         + cam.height * cam.width * 16 + used.numel() * 4
     rows.append(compositor_row(
-        "composite_fwd", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:817", counts["composite_fwd"], err, ms,
-        plain_ms, pc, nbytes, "fwd", "beauty", pairs_binned=int(b.tile_count.sum()),
+        "composite_fwd", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:817",
+        counts["composite_fwd"] + scene_counts["composite_fwd"], err, ms, plain_ms, pc, nbytes, "fwd", "beauty",
+        launches_by_path={"main_path": counts["composite_fwd"], "scene_path": scene_counts["composite_fwd"]},
+        pairs_binned=int(b.tile_count.sum()),
         tiles_stopped_early=int((used < b.tile_span).sum())))
     return rows
 
@@ -2370,7 +2721,8 @@ def main():
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--steps", type=int, default=5, help="training steps after warm-up")
-    ap.add_argument("--stop-after", choices=("build", "checks", "reference", "sharded", "host_scene"), default=None,
+    ap.add_argument("--stop-after", choices=("build", "checks", "reference", "sharded", "host_scene", "scene"),
+                    default=None,
                     help="a short run: stop after this phase (prints no result line)")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print what ptxas reports for each kernel (registers, shared memory, spills)")
@@ -2430,12 +2782,23 @@ def main():
         dcfg, bgd, wcfg, host = phase_host_scene(splats, cams, args.frames, cfg)
     if args.stop_after == "host_scene":
         return
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
+        tmp = Path(tmpdir)
+        with phase("scene_path"):
+            scene_counts = phase_scene_path(splats, cams, tmp, card)
+        with phase("examples"):
+            phase_examples(tmp / "bench_scene.ply", tmp)
+        (tmp / "bench_scene.ply").unlink()
+        with phase("ply_fit"):
+            phase_ply_fit(tmp)
+    if args.stop_after == "scene":
+        return
     with phase("calibrate"):
         path_idx = compositor_inputs(splats, cams[0], cfg)[1].pair_splat
         calib, by_probe = phase_calibrate(
             splats, cams[0], cfg, frame_ms, train_cfg, step_ms, dcfg, bgd, host["frames"]["median_frame_ms"])
     with phase("kernels"):
-        rows = phase_kernels(splats, cams[0], cfg, counts, train_counts)
+        rows = phase_kernels(splats, cams[0], cfg, counts, train_counts, scene_counts)
         rows += phase_train_kernels(splats, cams[0], train_cfg, train_counts)
         rows += phase_host_kernels(splats, cams[0], dcfg, bgd, wcfg, host)
         rows += phase_probe_kernels(calib, by_probe, path_idx)

@@ -21,8 +21,10 @@ and the wireframe views (``ops/wireframe.py``); the calibration probes and
 the H100 speed-of-light model (``utils/sol_calibrate.py``,
 ``utils/profile_gather.py``, ``utils/sol.py``); rendering and training
 sharded over ranks of ``torch.distributed`` (``parallel/``,
-``make_sharded_train_step``).  The scene registry and file I/O are later
-slices.
+``make_sharded_train_step``); the host runtime — the scene registry
+(``scene.py``), PLY, attribute and JSON I/O (``io/``), the ray/bbox queries
+(``ops/queries.py``) and the native host helpers (``io/native.py``, C++
+built with ``g++`` at first use).
 """
 
 from .version import __version__
@@ -60,6 +62,11 @@ from .parallel.render_sharded import (
     tune_strip_exchange,
 )
 from .io.checkpoint import restore_checkpoint, save_checkpoint
+from .scene import SceneRegistry
+from .io.ply import load_ply, save_ply
+from .io.attributes import splats_from_attributes
+from .io.json_io import load_json, save_json
+from .ops.queries import RayHit, intersect_ray_bbox, intersect_rays_bbox
 
 __all__ = [
     "render",
@@ -112,4 +119,13 @@ __all__ = [
     "tune_strip_exchange",
     "save_checkpoint",
     "restore_checkpoint",
+    "SceneRegistry",
+    "load_ply",
+    "save_ply",
+    "splats_from_attributes",
+    "load_json",
+    "save_json",
+    "RayHit",
+    "intersect_ray_bbox",
+    "intersect_rays_bbox",
 ]

@@ -42,6 +42,9 @@ class Camera:
     # below (so it is bit-equal to the JAX package's numpy value); derived
     # with tensor ops when a Camera is built by hand without it.
     derived_pos: Optional[torch.Tensor] = None
+    # ``position`` as a host array, set by the constructors below: a host loop
+    # (the scene registry's re-sort test) reads it without a device read.
+    host_position: Optional[np.ndarray] = None
 
     @property
     def position(self) -> torch.Tensor:
@@ -98,18 +101,21 @@ def camera_from_numpy(
     view = np.asarray(view, dtype=np.float32)
     proj = np.asarray(proj, dtype=np.float32)
     explicit = None
+    derived = np.asarray(-view[:3, :3].T @ view[:3, 3], np.float32)
+    host_position = derived
     if explicit_camera_pos is not None:
         e = np.asarray(explicit_camera_pos, dtype=np.float32)
         if not np.isnan(e).any():
             explicit = torch.from_numpy(e.copy()).to(dev)
-    derived = -view[:3, :3].T @ view[:3, 3]
+            host_position = e.copy()
     return Camera(
         view=torch.from_numpy(view.copy()).to(dev),
         proj=torch.from_numpy(proj.copy()).to(dev),
         width=int(width),
         height=int(height),
         explicit_camera_pos=explicit,
-        derived_pos=torch.from_numpy(np.asarray(derived, np.float32).copy()).to(dev),
+        derived_pos=torch.from_numpy(derived.copy()).to(dev),
+        host_position=host_position,
     )
 
 

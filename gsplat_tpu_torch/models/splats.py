@@ -56,6 +56,36 @@ class GaussianSplats:
     def device(self) -> torch.device:
         return self.pos.device
 
+    def astype(self, dtype: torch.dtype) -> "GaussianSplats":
+        """Cast every field but the positions, which stay float32."""
+        return GaussianSplats(
+            pos=self.pos,
+            orient=self.orient.to(dtype),
+            scale=self.scale.to(dtype),
+            opacity=self.opacity.to(dtype),
+            color=self.color.to(dtype),
+            sh=self.sh.to(dtype),
+        )
+
+    def concat(self, other: "GaussianSplats") -> "GaussianSplats":
+        """The two clusters' splats, ``self``'s first, on ``self``'s device."""
+        return GaussianSplats(**{
+            f.name: torch.cat([getattr(self, f.name), getattr(other, f.name)], dim=-1)
+            for f in dataclasses.fields(self)
+        })
+
+    def head(self, n: int) -> "GaussianSplats":
+        """The first ``n`` splats (the registry's partial-cluster budget clamp)."""
+        return GaussianSplats(**{f.name: getattr(self, f.name)[..., :n] for f in dataclasses.fields(self)})
+
+    def barycenter(self) -> torch.Tensor:
+        """Mean position, (3,), on the splats' device."""
+        return torch.mean(self.pos, dim=-1)
+
+    def bbox(self):
+        """(min, max) corners of the positions, each (3,), on the splats' device."""
+        return torch.amin(self.pos, dim=-1), torch.amax(self.pos, dim=-1)
+
     def validate(self) -> "GaussianSplats":
         """Shape validation."""
         n = self.pos.shape[-1]

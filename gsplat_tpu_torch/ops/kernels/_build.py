@@ -64,9 +64,13 @@ def _nvcc() -> str:
     )
 
 
-def build_dir() -> Path:
+def build_root() -> Path:
+    """``$GSPLAT_TPU_TORCH_BUILD_DIR``, else ``build/`` beside the package."""
     root = os.environ.get("GSPLAT_TPU_TORCH_BUILD_DIR")
-    base = Path(root) if root else Path(__file__).resolve().parents[3] / "build"
+    return Path(root) if root else Path(__file__).resolve().parents[3] / "build"
+
+
+def build_dir() -> Path:
     h = hashlib.sha256()
     for name in sorted(EXTRA_FLAGS):
         h.update(name.encode())
@@ -75,7 +79,7 @@ def build_dir() -> Path:
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    return base / f"gsplat_tpu_torch-{h.hexdigest()[:16]}"
+    return build_root() / f"gsplat_tpu_torch-{h.hexdigest()[:16]}"
 
 
 def build_all(verbose: bool = False) -> Path:

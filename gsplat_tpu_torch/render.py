@@ -114,7 +114,10 @@ def render_cuda(
     binned = bin_splats(p, width, height, config, with_tiles=False, with_grad_map=need_grad)
     nty, ntx = tile_grid(width, height, config.tile_h, config.tile_w)
     image = _composite_cuda(p, binned, nty, ntx, height, width, config, need_grad, bg_depth=bg_depth)
-    # After the last launch is queued: the only host read of the frame.
+    # After the last launch is queued: the only host read of the frame, kept
+    # for direct callers.  SceneRegistry renders with warn_on_drop=False and
+    # reports the returned stats at its next frame, so that its frames make
+    # no device sync: do not move this read into the registry's frame.
     warn_if_dropped(binned, config)
     if with_stats:
         return image, RenderStats(dropped_pairs=binned.dropped_pairs)

@@ -37,8 +37,9 @@ def format_count(n: int) -> str:
 
 
 class OnceLogger:
-    """Logger with per-key one-time suppression (``warning_once`` logs a key
-    the first time only; ``reset_once`` re-arms it)."""
+    """Logger with per-key one-time suppression: the ``*_once`` methods log a
+    message only the first time (keyed by level and message, or by an
+    explicit ``key``); ``reset_once`` re-arms a key."""
 
     def __init__(self, name: str):
         _configure_root()
@@ -51,12 +52,24 @@ class OnceLogger:
     def warning(self, msg: str, *args) -> None:
         self._log.warning(msg, *args)
 
-    def warning_once(self, msg: str, key: str | None = None) -> None:
-        k = key if key is not None else f"{logging.WARNING}:{msg}"
+    def error(self, msg: str, *args) -> None:
+        self._log.error(msg, *args)
+
+    def _once(self, level: int, msg: str, key: str | None) -> None:
+        k = key if key is not None else f"{level}:{msg}"
         if k in self._seen:
             return
         self._seen.add(k)
-        self._log.warning(msg)
+        self._log.log(level, msg)
+
+    def info_once(self, msg: str, key: str | None = None) -> None:
+        self._once(logging.INFO, msg, key)
+
+    def warning_once(self, msg: str, key: str | None = None) -> None:
+        self._once(logging.WARNING, msg, key)
+
+    def error_once(self, msg: str, key: str | None = None) -> None:
+        self._once(logging.ERROR, msg, key)
 
     def reset_once(self, key: str) -> None:
         """Re-arm a suppressed key (fire again when the condition recurs)."""

@@ -2,6 +2,8 @@
 JAX package (or numpy) from a seed and carried across to the port as numpy, so
 both packages see bit-equal inputs.  Everything runs on the CPU."""
 
+import logging
+
 import jax
 import numpy as np
 import torch
@@ -69,3 +71,14 @@ def t_projected(fields: np.ndarray) -> TProjected:
 
 def npy(t) -> np.ndarray:
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+class LogRecords(logging.Handler):
+    """Collects (level name, message) of the records a logger emits."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append((record.levelname, record.getMessage()))
