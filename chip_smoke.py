@@ -14,7 +14,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              200 back-to-back calls of alternating kind and length with its
              scratch poisoned by random words, and - in a child process
              under a timeout of its own - after two scratch growths into a
-             handed-back block that holds the next epoch's tags;
+             handed-back block that holds the next epoch's tags; captured
+             in a CUDA graph at 1M (add) and 2,359,296 (max) and replayed
+             with new inputs, bit-equal, also across forced epoch wraps,
+             one launch counted and one device operation traced a replay;
              compositor: image max|diff| < 1e-5 and equal stop counters,
              every forward call run twice (bit-equal) and through its audit
              instance (no pixel with alpha != 0 in a warp its mask skipped,
@@ -79,13 +82,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
   main_path  1,000,000 splats at 1920x1080, packed payload, eps 1e-3, pair
              budget tuned: five frames from an orbit through render(...,
              backend="auto", with_stats=True).  Launch counters are zeroed
-             just before and read just after.
+             just before and read just after.  Then the same frame captured
+             in a CUDA graph (gsplat_tpu_torch.graphs.capture, as bench.py
+             jits it) and replayed over the five cameras, each camera's
+             matrices copied into the captured camera's tensors: each image
+             bit-equal to the eager frame of its camera, dropped_pairs 0,
+             the counters (zeroed, read) 2 scans + 1 forward a replay, and
+             one replay's trace holding the same kernels;
+             median_graph_frame_ms beside median_frame_ms.
   stages     the main path's stages timed one by one (where a frame's time
              goes).
   train_path the same scene and configuration under make_train_step with
              default_optimizer: steps towards a target rendered from the
              scene with perturbed colours and positions.  Launch counters
-             are zeroed just before and read just after.
+             are zeroed just before and read just after.  On the card the
+             step is captured (call 1 eager, call 2 captured and replayed,
+             then replays); beside it the same four lines run eagerly here
+             with the same capturable optimizer from the same start: the
+             losses and the parameters bit-equal, the same counts, and a
+             replay's trace holding 4 scans, 1 forward, 1 backward and 1
+             segment sum; median_step_ms (captured) beside
+             median_eager_step_ms.
   train_stages  one training step taken apart (where a step's time goes).
   host_scene_path  the same scene composited into a host scene: float32
              payload, the depth test against a slanted plane of view depth
@@ -120,7 +137,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
   ply_fit    the JAX package's PLY fit gate through the kernels: the
              heavy-tailed 800-splat scene through save_ply and load_ply,
              4 views at 96x96, a seeded perturbation, 120 Adam steps round
-             robin; view 0 must end above 26 dB and its start + 3 dB.
+             robin (one captured make_train_step a view, one optimizer);
+             view 0 must end above 26 dB and its start + 3 dB.
   calibrate  the speed-of-light constants measured on this card
              (gsplat_tpu_torch/utils/sol_calibrate.py: ALU probe, gather probe
              on the main path's indices and on random ones, torch.sort, HBM
@@ -140,6 +158,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              trace; the strided rows at rank 0's inputs on the sharded path.
              The scan and forward rows' launches are the main path's and the
              scene path's registry frames (launches_by_path).
+
+--profile also traces three frames and three training steps, eager and
+replayed from their graphs, and prints each one's device_busy_share.
 
 python3 chip_smoke.py --frame-digest prints only the SHA-256 of the main
 path's first frame and of its forward kernel's image and stop counters, to
@@ -173,6 +194,7 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 import gsplat_tpu_torch as gt
+from gsplat_tpu_torch import graphs
 from gsplat_tpu_torch.ops import binning
 from gsplat_tpu_torch.ops import wireframe as wire
 from gsplat_tpu_torch.ops.kernels import _build
@@ -703,10 +725,11 @@ SCAN_GROWTH_TIMEOUT_S = 180
 
 def scan_growth_probe():
     """In a fresh process: twice (kind add, then max) an int64 block of the
-    size the scan's next scratch growth requests is filled with the next
-    epoch's tags - the tile counter (epoch << 32) | 5 and every status word
-    (2 * epoch) << 32, an aggregate of 0 ready to be read - and freed, then a
-    scan forces the growth.  The caching allocator hands the block back
+    size the scan's next scratch growth requests is filled with the tags of
+    the epoch a fresh scratch's first call takes (1) - an epoch word of 0,
+    both counters (epoch << 32) | 5 and every status word (2 * epoch) << 32,
+    an aggregate of 0 ready to be read - and freed, then a scan forces the
+    growth.  The caching allocator hands the block back
     (checked by its address); the result must be bit-equal to torch.cumsum /
     torch.cummax.  Prints one JSON line; exit 1 if a result differs."""
     g = torch.Generator(device=DEV)
@@ -721,13 +744,14 @@ def scan_growth_probe():
         want_words = max(kscan.scratch_words(n), 0 if held is None else 2 * held.numel())
         x = scan_input(kind, n, g)
         want = (torch.cumsum(x, 0, dtype=torch.int32) if kind == "add" else torch.cummax(x, 0).values)
-        e = kscan._epoch + 1  # the epoch of the next call
+        e = 1  # the epoch of a fresh scratch's first call (csrc/scan.cu)
         # guards on both sides, so that the freed block cannot merge with
         # free neighbours and go to another request of the call first
         guard0 = torch.empty((64,), dtype=torch.int64, device=DEV)
         poison = torch.full((want_words,), (2 * e) << 32, dtype=torch.int64, device=DEV)
         guard1 = torch.empty((64,), dtype=torch.int64, device=DEV)
-        poison[0] = (e << 32) | 5
+        poison[0] = e - 1
+        poison[1:3] = (e << 32) | 5
         ptr = poison.data_ptr()
         torch.cuda.synchronize()
         del poison
@@ -755,24 +779,65 @@ def check_scan_growth():
     return json.loads(lines[-1])
 
 
-def check_scan_refuses_capture():
-    """Under CUDA graph capture the scan raises and launches nothing (a
-    replay would reuse the launch's epoch)."""
-    x = torch.arange(10_000, dtype=torch.int32, device=DEV)
-    before = kscan.launches
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            kscan.scan_i32(x, "add")
-    except RuntimeError as e:
-        if "CUDA graph" not in str(e):
-            raise
-    else:
-        fail("scan_i32 was captured in a CUDA graph")
-    if kscan.launches != before:
-        fail("scan_i32 counted a launch under capture")
-    if not torch.equal(kscan.scan_i32(x, "add"), kscan.scan_i32_plain(x, "add")):
-        fail("scan_i32 differs from its plain version after a refused capture")
+SCAN_CAPTURE_REPLAYS = 5
+# The test hook's epoch end for the forced wrap: epochs 1 and 2, then the
+# last block zeroes the scratch.
+SCAN_WRAP_EPOCH_END = 3
+
+
+def check_scan_capture(g):
+    """The scan under CUDA graph capture (gsplat_tpu_torch.graphs.capture):
+    a scan of 1M elements (add) and of 2,359,296 (max) captured, replayed
+    SCAN_CAPTURE_REPLAYS times with new inputs copied in, each replay
+    bit-equal to torch.cumsum / torch.cummax and counted as one launch (the
+    capture as none); the same again across forced epoch wraps (the test
+    hook's epoch end 3: the scratch is zeroed on the device every second
+    call), with an eager call between the replays on the capture stream's
+    scratch; and one replay's device operations in a trace: the one kernel,
+    no memset."""
+    out = {}
+    for kind, n in (("add", 1_000_000), ("max", 2_359_296)):
+        x = scan_input(kind, n, g)
+        plain = (lambda v: torch.cumsum(v, 0, dtype=torch.int32)) if kind == "add" else \
+            (lambda v: torch.cummax(v, 0).values)
+        res = {}
+        for label, end in (("replays", None), ("replays_across_wraps", SCAN_WRAP_EPOCH_END)):
+            kscan.set_epoch_end(end)
+            try:
+                before = kscan.launches_by_kind[kind]
+                graph = graphs.capture(lambda: kscan.scan_i32(x, kind))
+                if kscan.launches_by_kind[kind] != before + 1:  # the warm-up's launch only
+                    fail(f"scan capture [{kind}]: the capture counted launches")
+                if graph.launches != {(kscan, "launches", None): 1, (kscan, "launches_by_kind", kind): 1}:
+                    fail(f"scan capture [{kind}]: a replay counts {graph.launches}")
+                equal = 0
+                for r in range(SCAN_CAPTURE_REPLAYS):
+                    x.copy_(scan_input(kind, n, g))
+                    got = graph.replay()
+                    if torch.equal(got, plain(x)):
+                        equal += 1
+                    if end is not None and r == 1:  # an eager call on the same scratch between replays
+                        side = graphs.run_on_capture_stream(kscan.scan_i32, x, kind)
+                        if not torch.equal(side, plain(x)):
+                            fail(f"scan capture [{kind}]: an eager call between replays differs")
+                if equal != SCAN_CAPTURE_REPLAYS:
+                    fail(f"scan capture [{kind}] {label}: {SCAN_CAPTURE_REPLAYS - equal} of "
+                         f"{SCAN_CAPTURE_REPLAYS} replays differ from the plain version")
+                if kscan.launches_by_kind[kind] != before + 1 + SCAN_CAPTURE_REPLAYS + (end is not None):
+                    fail(f"scan capture [{kind}]: counts {kscan.launches_by_kind[kind] - before}")
+                res[label] = "bit-equal"
+                if end is None:
+                    traced = traced_calls(graph.replay, 10)
+                    if traced["device_ops_per_call"] != 1:
+                        fail(f"scan capture [{kind}]: a replay enqueued {traced['device_ops_per_call']} "
+                             "device operations, not 1")
+                    res.update(replay_device_ops=traced["device_ops_per_call"],
+                               replay_device_us=traced["device_us_per_call"])
+            finally:
+                kscan.set_epoch_end(None)
+            del graph
+        out[f"{kind}_{n}"] = res
+    return out
 
 
 def phase_checks():
@@ -796,7 +861,7 @@ def phase_checks():
             scan_cases += 1
     stress_calls = check_scan_stress(g)
     scan_growth = check_scan_growth()
-    check_scan_refuses_capture()
+    scan_capture = check_scan_capture(g)
 
     splats = bench_scene(100_000, seed=2)
     worst = 0.0
@@ -943,6 +1008,7 @@ def phase_checks():
     probe = check_probes()
     emit("checks", scan_cases=scan_cases, scan="bit-equal", scan_stress_calls=stress_calls,
          scan_stress="bit-equal, scratch poisoned every 25 calls", scan_growth_over_next_epoch_tags=scan_growth,
+         scan_capture=scan_capture,
          compositor_cases=comp_cases,
          depth_test_cases=depth_cases, wireframe_cases=wire_cases, strided_cases=strided_cases,
          strided_forward="bit-equal (and its checkpoint variant)", strided_bwd_worst_row_rel_err=strided_bwd,
@@ -1089,14 +1155,66 @@ def phase_main_path(n_splats, width, height, frames):
         if cov < 0.05:
             fail(f"frame (nearly) empty: {cov:.3f} of the pixels are covered")
         coverage.append(round(cov, 4))
+    graph = captured_frame(splats, cams, cfg, images, want)
     nty, ntx = binning.tile_grid(width, height, cfg.tile_h, cfg.tile_w)
     emit("main_path", splats=n_splats, size=f"{width}x{height}", frames=frames,
          payload_dtype=cfg.payload_dtype, transmittance_eps=cfg.transmittance_eps,
          pair_budget=cfg.pair_budget(n_splats), pairs=pairs, tiles=nty * ntx,
          dropped_pairs=dropped, warmup_frames=WARMUP_FRAMES, frame_ms=times,
          median_frame_ms=statistics.median(times), min_frame_ms=min(times),
-         peak_memory_bytes=peak, covered_share=coverage, launches=counts)
-    return splats, cams, cfg, counts, statistics.median(times)
+         median_graph_frame_ms=graph["median_graph_frame_ms"],
+         peak_memory_bytes=peak, covered_share=coverage, launches=counts,
+         graph={k: v for k, v in graph.items() if k != "serve"})
+    return splats, cams, cfg, counts, graph
+
+
+def captured_frame(splats, cams, cfg, images, want):
+    """The main path's frame captured as bench.py:157 jits it: one CUDA graph
+    of render(..., with_stats=True) over a camera whose tensors each orbit
+    camera's matrices are copied into before its replay.  Each replay (timed
+    with its copies) bit-equal to the eager frame of its camera in this run,
+    dropped_pairs 0, the launch counters (zeroed before, read after) those of
+    the eager frames, and one replay's kernels in a profiler trace the same
+    counts.  Returns the graph's line and `serve`, a frame of a camera."""
+    width, height = cams[0].width, cams[0].height
+    live = gt.Camera(view=cams[0].view.clone(), proj=cams[0].proj.clone(), width=width, height=height,
+                     derived_pos=cams[0].derived_pos.clone())
+    t0 = time.time()
+    graph = graphs.capture(lambda: gt.render(splats, live, cfg, backend="auto", with_stats=True))
+    capture_s = time.time() - t0
+
+    def serve(cam):
+        live.view.copy_(cam.view)
+        live.proj.copy_(cam.proj)
+        live.derived_pos.copy_(cam.derived_pos)
+        return graph.replay()
+
+    for k in range(WARMUP_FRAMES):
+        serve(cams[k % len(cams)])
+    torch.cuda.synchronize()
+    zero_counters()
+    times, dropped, equal = [], [], 0
+    for cam, image_eager in zip(cams, images):
+        ms, (image, stats) = cuda_time_ms(lambda: serve(cam))
+        times.append(ms)
+        equal += int(torch.equal(image, image_eager))
+        dropped.append(int(stats.dropped_pairs))
+    counts = read_counters()
+    if counts != want:
+        fail(f"captured frame: launch counts {counts}, expected {want}")
+    if equal != len(cams):
+        fail(f"captured frame: {len(cams) - equal} of {len(cams)} replays differ from the eager frame")
+    if any(dropped):
+        fail(f"captured frame: dropped_pairs {dropped}")
+    traced = traced_calls(lambda: serve(cams[0]), 3)
+    per_replay = {k: v // len(cams) for k, v in counts.items() if k in OUR_KERNELS}
+    if traced["our_kernels_per_call"] != per_replay:
+        fail(f"captured frame: a replay's trace holds {traced['our_kernels_per_call']}, the counters {per_replay}")
+    return {"median_graph_frame_ms": statistics.median(times), "graph_frame_ms": times,
+            "min_graph_frame_ms": min(times), "bit_equal_to_eager": equal, "dropped_pairs": dropped,
+            "capture_s": capture_s, "graph_pool_bytes": graph.pool_bytes, "launches": counts,
+            "replay_device_ops": traced["device_ops_per_call"], "replay_device_us": traced["device_us_per_call"],
+            "replay_kernels_traced": traced["our_kernels_per_call"], "serve": serve}
 
 
 def phase_frame_digest(n_splats, width, height):
@@ -1172,8 +1290,43 @@ def perturbed_target(splats, cam, cfg, seed=21):
     return (img[..., :3] + (1.0 - img[..., 3:4])).contiguous()
 
 
+def eager_train_step(optimizer, cam, cfg, lambda_dssim=0.2):
+    """make_train_step's four lines, run eagerly here: zero_grad, the loss
+    of the render over white, backward, the optimizer's step."""
+
+    def step(params, target):
+        optimizer.zero_grad(set_to_none=True)
+        img = gt.render(gt.splats_from_params(params), cam, cfg, backend="auto")
+        loss = render_loss(img[..., :3] + (1.0 - img[..., 3:4]), target, lambda_dssim)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def timed_steps(step, params, target, steps):
+    """WARMUP_STEPS calls of step(params, target), then `steps` timed ones
+    with the launch counters zeroed just before and read just after."""
+    warm = [float(step(params, target)) for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    losses, times = [], []
+    for _ in range(steps):
+        ms, loss = cuda_time_ms(lambda: step(params, target))
+        times.append(ms)
+        losses.append(float(loss))
+    counts = read_counters()
+    return warm, losses, times, counts, torch.cuda.max_memory_allocated()
+
+
 def phase_train_path(splats, cam, cfg, steps):
-    """make_train_step with default_optimizer on the production scene."""
+    """make_train_step with default_optimizer on the production scene: the
+    captured step (call 1 eager, call 2 captured and replayed once, then
+    replays), and beside it the same four lines run eagerly with the same
+    capturable optimizer from the same start - losses and parameters
+    bit-equal."""
     n = splats.count
     target = perturbed_target(splats, cam, cfg)
     # a budget with room for the few steps the parameters move
@@ -1182,18 +1335,8 @@ def phase_train_path(splats, cam, cfg, steps):
     start = {k: v.detach().clone() for k, v in params.as_dict().items()}
     optimizer = gt.default_optimizer(params)
     step = gt.make_train_step(optimizer, cam, cfg, backend="auto")
-    warm = [float(step(params, target)) for _ in range(WARMUP_STEPS)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    zero_counters()
-    losses, times = [], []
-    for _ in range(steps):
-        ms, loss = cuda_time_ms(lambda: step(params, target))
-        times.append(ms)
-        losses.append(float(loss))
-    counts = read_counters()
-    peak = torch.cuda.max_memory_allocated()
+    warm, losses, times, counts, peak = timed_steps(step, params, target, steps)
+    reserved = torch.cuda.memory_reserved()
 
     want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps,
                          composite_fwd=steps, composite_fwd_checkpoint=steps,
@@ -1204,6 +1347,30 @@ def phase_train_path(splats, cam, cfg, steps):
         fail(f"non-finite loss: {warm + losses}")
     if not losses[-1] < losses[0]:
         fail(f"loss did not fall over {steps} steps: {losses}")
+    traced = traced_calls(lambda: step(params, target), 2)
+    per_step = {k: v // steps for k, v in counts.items() if k in OUR_KERNELS}
+    if traced["our_kernels_per_call"] != per_step:
+        fail(f"captured step: a replay's trace holds {traced['our_kernels_per_call']}, the counters {per_step}")
+    # The traced calls moved the parameters: the eager comparison below
+    # takes as many steps before it compares them.
+    extra = 1 + 2 * traced["trace_sessions"]
+
+    # The eager step: the four lines of make_train_step with the same
+    # capturable optimizer, from the same start.
+    eparams = gt.params_from_splats(splats)
+    eopt = gt.default_optimizer(eparams)
+    eager_step = eager_train_step(eopt, cam, cfg)
+    ewarm, elosses, etimes, ecounts, epeak = timed_steps(eager_step, eparams, target, steps)
+    if ecounts != want:
+        fail(f"eager step launch counts {ecounts}, expected {want}")
+    if ewarm + elosses != warm + losses:
+        fail(f"captured losses {warm + losses} differ from the eager step's {ewarm + elosses}")
+    for _ in range(extra):
+        eager_step(eparams, target)
+    differ = [k for k, v in params.as_dict().items() if not torch.equal(v, eparams.as_dict()[k])]
+    if differ:
+        fail(f"captured and eager steps left different parameters: {differ}")
+    del eparams, eopt
     with torch.no_grad():
         _, stats = gt.render(gt.splats_from_params(params), cam, cfg, backend="auto", with_stats=True)
     dropped = int(stats.dropped_pairs)
@@ -1218,9 +1385,14 @@ def phase_train_path(splats, cam, cfg, steps):
             fail(f"parameter {k} did not move")
     emit("train_path", splats=n, size=f"{cam.width}x{cam.height}", steps=steps, warmup_steps=WARMUP_STEPS,
          payload_dtype=cfg.payload_dtype, transmittance_eps=cfg.transmittance_eps,
-         pair_budget=cfg.pair_budget(n), optimizer="Adam, one group per field (default_optimizer)",
+         pair_budget=cfg.pair_budget(n), optimizer="Adam, one group per field (default_optimizer, capturable)",
          lambda_dssim=0.2, warmup_losses=warm, losses=losses, step_ms=times,
-         median_step_ms=statistics.median(times), min_step_ms=min(times), peak_memory_bytes=peak,
+         median_step_ms=statistics.median(times), min_step_ms=min(times),
+         median_eager_step_ms=statistics.median(etimes), min_eager_step_ms=min(etimes), eager_step_ms=etimes,
+         eager_losses="bit-equal", eager_parameters="bit-equal", peak_memory_bytes=peak,
+         eager_peak_memory_bytes=epeak, reserved_bytes=reserved, graph_pool_bytes=step.graph.pool_bytes,
+         replay_device_ops=traced["device_ops_per_call"], replay_device_us=traced["device_us_per_call"],
+         replay_kernels_traced=traced["our_kernels_per_call"],
          dropped_pairs=dropped, max_abs_move=moved_by, launches=counts,
          launches_per_step={k: v / steps for k, v in counts.items()})
     return cfg, target, counts, statistics.median(times)
@@ -1678,7 +1850,8 @@ def phase_ply_fit(tmp, steps=120):
     """The JAX package's PLY fit gate (tests/test_fit_quality.py:48-106) through
     the kernels: the heavy-tailed 800-splat scene written with save_ply and
     read with load_ply, 4 views at 96x96, a seeded perturbation, Adam over
-    120 steps round robin; view 0 must end above 26 dB and start + 3 dB."""
+    120 steps round robin (one captured make_train_step a view, over one
+    optimizer); view 0 must end above 26 dB and start + 3 dB."""
     scene = heavy_tailed_scene()
     path = tmp / "fit_scene.ply"
     gt.save_ply(path, scene)
@@ -1729,7 +1902,9 @@ def phase_ply_fit(tmp, steps=120):
         fail(f"ply fit: view-0 PSNR {start:.2f} -> {end:.2f} dB (gate: > start + 3 and > 26)")
     emit("ply_fit", splats=n, views=4, size="96x96", steps=steps, lr_pos=1.5e-3, lambda_dssim=0.2,
          start_psnr_db=start, end_psnr_db=end, first_loss=losses[0], last_loss=losses[-1],
-         median_step_ms=statistics.median(times), min_step_ms=min(times), launches=counts)
+         median_step_ms=statistics.median(times), min_step_ms=min(times),
+         step="make_train_step: each view's call 1 eager, call 2 captured, then CUDA graph replays",
+         graph_pool_bytes=[s.graph.pool_bytes for s in step_fns], launches=counts)
 
 
 def pairs_walked(used, b):
@@ -1786,10 +1961,17 @@ def device_events(path):
             if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
-# Traces a traced_calls may take: a session whose trace comes back with no
-# device event at all (the tracer's failure, seen once on the card) is taken
-# again; what a trace that has events shows is never retried.
-TRACE_ATTEMPTS = 3
+# The port's production kernels by counter name, and what their device
+# events' names hold.
+OUR_KERNELS = {"scan_i32": "scan_kernel", "composite_fwd": "composite_fwd_kernel",
+               "composite_bwd": "composite_bwd_kernel", "segsum": "segsum_kernel"}
+
+# Traces a traced_calls may take: a session whose trace comes back with
+# fewer device events than calls (every traced call enqueues at least one;
+# the tracer's failure, seen on the card with no event at all and, once CUDA
+# graphs had run in the process, with a few of the calls' events) is taken
+# again; what a trace with an event a call or more shows is never retried.
+TRACE_ATTEMPTS = 5
 
 
 def traced_calls(fn, calls):
@@ -1803,13 +1985,15 @@ def traced_calls(fn, calls):
             fn()
         torch.cuda.synchronize()
         events = device_events(stop_trace())
-        if events:
+        if len(events) >= calls:
             break
     else:
-        fail(f"the profiler trace holds no device events ({TRACE_ATTEMPTS} sessions)")
+        fail(f"the profiler trace holds fewer device events than calls ({TRACE_ATTEMPTS} sessions)")
     return {"device_ops_per_call": len(events) / calls,
             "device_us_per_call": sum(d for _, d in events) / calls,
-            "device_op_names": sorted({n[:60] for n, _ in events}), "trace_sessions": attempt}
+            "device_op_names": sorted({n[:60] for n, _ in events}), "trace_sessions": attempt,
+            "our_kernels_per_call": {k: sum(sub in n for n, _ in events) // calls
+                                     for k, sub in OUR_KERNELS.items()}}
 
 
 def phase_profile(label, units):
@@ -2083,10 +2267,11 @@ def phase_probe_kernels(calib, by_probe, path_idx):
     return rows
 
 
-def phase_kernels(splats, cam, cfg, counts, train_counts, scene_counts):
+def phase_kernels(splats, cam, cfg, counts, graph_counts, train_counts, scene_counts):
     """Each kernel at the main path's shapes: error, times, bound.  The scan
-    and forward rows' launches are the main path's frames and the scene
-    path's registry frames together (launches_by_path)."""
+    and forward rows' launches are the main path's frames (eager and
+    captured) and the scene path's registry frames together
+    (launches_by_path)."""
     n = splats.count
     budget = cfg.pair_budget(n)
     g = torch.Generator(device=DEV)
@@ -2120,8 +2305,11 @@ def phase_kernels(splats, cam, cfg, counts, train_counts, scene_counts):
         traced = traced_calls(lambda: kscan.scan_i32(nxt(), kind), 20)
         lib_traced = traced_calls(lambda: lib(nxt()), 20)
         row = {"name": f"scan_i32_{kind}", "route": "cuda", "source": "gsplat_tpu_torch/csrc/scan.cu",
-               "replaces": replaces, "launches": counts[f"scan_i32_{kind}"] + scene_counts[f"scan_i32_{kind}"],
+               "replaces": replaces,
+               "launches": counts[f"scan_i32_{kind}"] + graph_counts[f"scan_i32_{kind}"]
+               + scene_counts[f"scan_i32_{kind}"],
                "launches_by_path": {"main_path": counts[f"scan_i32_{kind}"],
+                                    "main_path_graph": graph_counts[f"scan_i32_{kind}"],
                                     "scene_path": scene_counts[f"scan_i32_{kind}"]},
                "launches_train_path": train_counts[f"scan_i32_{kind}"], "length": length,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
@@ -2148,8 +2336,10 @@ def phase_kernels(splats, cam, cfg, counts, train_counts, scene_counts):
         + cam.height * cam.width * 16 + used.numel() * 4
     rows.append(compositor_row(
         "composite_fwd", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:817",
-        counts["composite_fwd"] + scene_counts["composite_fwd"], err, ms, plain_ms, pc, nbytes, "fwd", "beauty",
-        launches_by_path={"main_path": counts["composite_fwd"], "scene_path": scene_counts["composite_fwd"]},
+        counts["composite_fwd"] + graph_counts["composite_fwd"] + scene_counts["composite_fwd"], err, ms, plain_ms,
+        pc, nbytes, "fwd", "beauty",
+        launches_by_path={"main_path": counts["composite_fwd"], "main_path_graph": graph_counts["composite_fwd"],
+                          "scene_path": scene_counts["composite_fwd"]},
         pairs_binned=int(b.tile_count.sum()),
         tiles_stopped_early=int((used < b.tile_span).sum())))
     return rows
@@ -2762,19 +2952,26 @@ def main():
     if args.stop_after == "sharded":
         return
     with phase("main_path"):
-        splats, cams, cfg, counts, frame_ms = phase_main_path(args.splats, args.width, args.height, args.frames)
+        splats, cams, cfg, counts, graph = phase_main_path(args.splats, args.width, args.height, args.frames)
     with phase("stages"):
         phase_stages(splats, cams[0], cfg)
     if args.profile:
         with phase("profile_frame"):
             phase_profile("frame", [lambda cam=cam: gt.render(splats, cam, cfg, backend="auto") for cam in cams[:3]])
+            phase_profile("frame (graph)", [lambda cam=cam: graph["serve"](cam) for cam in cams[:3]])
     with phase("train_path"):
         train_cfg, target, train_counts, step_ms = phase_train_path(splats, cams[0], cfg, args.steps)
     if args.profile:
         with phase("profile_step"):
             params = gt.params_from_splats(splats)
-            step = gt.make_train_step(gt.default_optimizer(params), cams[0], train_cfg, backend="auto")
+            step = eager_train_step(gt.default_optimizer(params), cams[0], train_cfg)
             phase_profile("training step", [lambda: step(params, target)] * 3)
+            params = gt.params_from_splats(splats)
+            step = gt.make_train_step(gt.default_optimizer(params), cams[0], train_cfg, backend="auto")
+            step(params, target)  # eager, then captured: the trace sees replays only
+            step(params, target)
+            phase_profile("training step (graph)", [lambda: step(params, target)] * 3)
+            del step, params
     with phase("train_stages"):
         phase_train_stages(splats, cams[0], train_cfg, target)
     del target
@@ -2795,10 +2992,11 @@ def main():
         return
     with phase("calibrate"):
         path_idx = compositor_inputs(splats, cams[0], cfg)[1].pair_splat
-        calib, by_probe = phase_calibrate(
-            splats, cams[0], cfg, frame_ms, train_cfg, step_ms, dcfg, bgd, host["frames"]["median_frame_ms"])
+        # the serving frame as a server serves it: replayed from its graph
+        calib, by_probe = phase_calibrate(splats, cams[0], cfg, graph["median_graph_frame_ms"], train_cfg, step_ms,
+                                          dcfg, bgd, host["frames"]["median_frame_ms"])
     with phase("kernels"):
-        rows = phase_kernels(splats, cams[0], cfg, counts, train_counts, scene_counts)
+        rows = phase_kernels(splats, cams[0], cfg, counts, graph["launches"], train_counts, scene_counts)
         rows += phase_train_kernels(splats, cams[0], train_cfg, train_counts)
         rows += phase_host_kernels(splats, cams[0], dcfg, bgd, wcfg, host)
         rows += phase_probe_kernels(calib, by_probe, path_idx)

@@ -24,7 +24,9 @@ sharded over ranks of ``torch.distributed`` (``parallel/``,
 ``make_sharded_train_step``); the host runtime — the scene registry
 (``scene.py``), PLY, attribute and JSON I/O (``io/``), the ray/bbox queries
 (``ops/queries.py``) and the native host helpers (``io/native.py``, C++
-built with ``g++`` at first use).
+built with ``g++`` at first use); the counterpart of ``jax.jit``: CUDA
+graphs (``graphs.py``) — ``make_train_step`` captures its step on the card,
+and ``capture`` holds a frame for replay.
 """
 
 from .version import __version__
@@ -67,6 +69,7 @@ from .io.ply import load_ply, save_ply
 from .io.attributes import splats_from_attributes
 from .io.json_io import load_json, save_json
 from .ops.queries import RayHit, intersect_ray_bbox, intersect_rays_bbox
+from .graphs import CapturedGraph, capture
 
 __all__ = [
     "render",
@@ -128,4 +131,6 @@ __all__ = [
     "RayHit",
     "intersect_ray_bbox",
     "intersect_rays_bbox",
+    "capture",
+    "CapturedGraph",
 ]

@@ -20,24 +20,35 @@
 // The status word: (tag << 32) | value in one 64-bit store (st.release.gpu),
 // read with ld.acquire.gpu, so flag and value can never tear apart.  The tag
 // is 2 * epoch (aggregate) or 2 * epoch + 1 (inclusive prefix), where the
-// epoch is a number the wrapper passes anew with every call: a word left by
-// an earlier call, or any other word, reads as "not ready".  The tile
-// counter carries the epoch in its high half too: a block that finds an old
-// epoch there restarts the count at this call's.  So no call needs a memset
-// launch, provided no word of the scratch carries a tag of this or a later
-// epoch when the call starts.  Words left by earlier calls never do (epochs
-// only grow), and the wrapper allocates and grows the scratch zeroed (the
-// tags of epoch 0, which no call has).  Zeroing at allocation is required,
-// not optional: a block the caching allocator hands back holds the
-// process's earlier data, and small integers read as 64-bit words carry
-// exactly the small epochs a young process uses next.  A status word with
-// this call's tag is read as a ready prefix (a wrong sum); a counter with
-// this call's epoch skips the restart, so tiles are drawn from a stale
-// count, some are never scanned and the look-back may spin forever.  The
-// price of the design: a launch must never run twice with one epoch, so it
-// cannot be replayed from a CUDA graph (the wrapper refuses a stream
-// capture), and once the 2^31 - 2 epochs are spent the wrapper zeroes the
-// scratch before it starts them again.
+// epoch is a number each call takes anew: a word left by an earlier call, or
+// any other word, reads as "not ready".  The epoch lives on the device, in
+// the scratch's first word, the epoch of the last call: every block reads it
+// (with the tile counter beside it, in one load) and takes the one after,
+// and the block that draws the call's last tile stores it back (every block
+// has read it by then).  The tile counter is (epoch << 32) | count: a block
+// that finds an older epoch there restarts it at this call's, so it needs no
+// reset.  A call thus needs nothing from the host but pointers and sizes,
+// and a launch replayed from a CUDA graph takes a fresh epoch exactly as an
+// eager one does.  When the next epoch would reach `epoch_end` (2^31 - 1,
+// or less through the wrapper's test hook), the call wraps instead: its
+// blocks count themselves finished in a second counter of the same form,
+// and the last to finish zeroes the whole scratch, so the next call starts
+// again at epoch 1 with no host step.
+// No call needs a memset launch, provided no word of the scratch carries a
+// tag of this or a later epoch when the call starts.  Words left by earlier
+// calls never do (epochs only grow between two zeroings), random words
+// almost never do, and the wrapper allocates and grows the scratch zeroed
+// (the tags of epoch 0, which no call has, and an epoch word that starts the
+// epochs at 1).  Zeroing at allocation is required, not optional: a block
+// the caching allocator hands back holds the process's earlier data, and
+// small integers read as 64-bit words carry exactly the small epochs a
+// scratch uses first.  A status word with this call's tag is read as a
+// ready prefix (a wrong sum); a counter with this call's epoch skips its
+// restart, so tiles are drawn from a stale count, some are never scanned and
+// the look-back may spin forever.  The price of the design: two launches
+// must never use one scratch at the same time, so the wrapper keys it by
+// stream, and graphs that captured one scratch must replay in one stream's
+// order (ops/kernels/scan.py).
 //
 // What bounds it: bytes, 8 per element (read once, write once), which this
 // design moves, plus 8 bytes of status a tile.  At L = 1M that is 2.4 us at
@@ -52,8 +63,8 @@
 // 4, the earlier three-launch kernel's tile: fewer tiles make shorter
 // look-back chains; PERF.md).
 //
-// Plain C interface: pointers, sizes, the epoch and the stream come in as
-// arguments, nothing is allocated or synchronised here, and the entry
+// Plain C interface: pointers, sizes, the epoch end and the stream come in
+// as arguments, nothing is allocated or synchronised here, and the entry
 // returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
@@ -108,16 +119,73 @@ __device__ __forceinline__ unsigned long long status_word(unsigned tag, int valu
     return ((unsigned long long)tag << 32) | (unsigned)value;
 }
 
-// Draws this call's next tile index from `counter` = (epoch << 32) | count.
-// A block that finds an older epoch there tries once to restart the count
-// at this call's (one of them wins; the others' attempts fail harmlessly,
-// since the word then holds this epoch), then every block takes its index
-// with one atomicAdd: no retry loop, so blocks do not queue on the counter.
-__device__ __forceinline__ int draw_tile(unsigned long long* counter, unsigned epoch) {
+// The scratch: word 0 the epoch of the last call, word 1 the tile counter,
+// word 2 the count of finished blocks (wrap calls only), word 3 + i tile
+// i's status.  Both counters are (epoch << 32) | count.  Words 0 and 1 are
+// read in one 16-byte load, so the scratch starts 16-byte aligned.
+constexpr int EPOCH_WORD = 0;
+constexpr int TILE_WORD = 1;
+constexpr int DONE_WORD = 2;
+constexpr int STATUS_WORDS = 3;
+
+// Restarts `counter` = (epoch << 32) | count at this call's epoch if `cur`,
+// the value read from it, holds an older one: a block that finds an older
+// epoch there tries once (one of them wins; the others' attempts fail
+// harmlessly, since the word then holds this epoch).  Returns the restart
+// value.
+__device__ __forceinline__ unsigned long long restart(unsigned long long* counter, unsigned long long cur,
+                                                      unsigned epoch) {
     const unsigned long long start = (unsigned long long)epoch << 32;
-    const unsigned long long cur = *reinterpret_cast<volatile unsigned long long*>(counter);
     if ((unsigned)(cur >> 32) != epoch) atomicCAS(counter, cur, start);
-    return (int)(unsigned)(atomicAdd(counter, 1ull) - start);
+    return start;
+}
+
+// The block's epoch and tile, by thread 0: the epoch word and the tile
+// counter in one 16-byte load with acquire semantics (nothing after it,
+// the draw included, is performed before it), then the tile index from one
+// atomicAdd on the counter, no retry loop, so blocks do not queue on it.
+__device__ __forceinline__ int draw_tile(unsigned long long* scratch, unsigned* epoch) {
+    unsigned long long last, cur;
+    asm volatile("ld.acquire.gpu.global.v2.u64 {%0, %1}, [%2];"
+                 : "=l"(last), "=l"(cur) : "l"(scratch + EPOCH_WORD) : "memory");
+    *epoch = (unsigned)last + 1u;
+    const unsigned long long start = restart(scratch + TILE_WORD, cur, *epoch);
+    return (int)(unsigned)(atomicAdd(scratch + TILE_WORD, 1ull) - start);
+}
+
+// The block that drew the last tile stores the call's epoch, once its
+// look-back is done (a release store before the tile's load lies on the
+// critical path of a scan that takes two waves of blocks): every block read
+// the epoch word before its draw (acquire), and every other draw came before
+// this one, so no block of the call reads it afterwards.  Release: the store
+// is performed after the draw.
+__device__ __forceinline__ void store_epoch(unsigned long long* scratch, unsigned epoch) {
+    store_release(scratch + EPOCH_WORD, (unsigned long long)epoch);
+}
+
+// A wrap call only (the next epoch would reach `epoch_end`): called by lane
+// 0 of warp 0 once the block is done with the scratch (every use of it
+// comes before: the epoch read, the tile drawn and the status stores in this
+// thread, the look-back's loads returned to the warp).  Counts the block as
+// finished, with release semantics, so that its status stores are visible
+// before the count; the block whose count completes the grid is the call's
+// last and returns true.
+__device__ __forceinline__ bool finish_block(unsigned long long* scratch, unsigned epoch, long long tiles) {
+    unsigned long long* done = scratch + DONE_WORD;
+    const unsigned long long start = restart(done, *reinterpret_cast<volatile unsigned long long*>(done), epoch);
+    unsigned long long old;
+    asm volatile("atom.release.gpu.global.add.u64 %0, [%1], %2;"
+                 : "=l"(old) : "l"(done), "l"(1ull) : "memory");
+    return (long long)(old - start) == tiles - 1;
+}
+
+// The wrap call's last block, warp 0: every other block has counted itself,
+// so nothing reads or writes the scratch any more in this call.  Zero the
+// whole scratch: epoch 0 stored, so the next call takes epoch 1, and no word
+// carries a tag of it.
+__device__ __forceinline__ void zero_scratch(unsigned long long* scratch, long long words, int lane) {
+    __threadfence();  // what the other blocks released with their counts, before the zeros
+    for (long long w = lane; w < words; w += 32) scratch[w] = 0ull;
 }
 
 // The exclusive prefix of `tile` over all tiles before it, by warp 0 of the
@@ -156,21 +224,31 @@ __device__ __forceinline__ int look_back(const unsigned long long* status, int t
 
 template <bool MAX>
 __global__ void __launch_bounds__(THREADS)
-scan_kernel(const int* __restrict__ in, int* __restrict__ out, unsigned long long* status,
-            unsigned long long* counter, long long n, unsigned epoch, bool vec_in, bool vec_out) {
+scan_kernel(const int* __restrict__ in, int* __restrict__ out, unsigned long long* scratch, long long words,
+            long long n, long long tiles, unsigned epoch_end, bool vec_in, bool vec_out) {
     constexpr int ROUNDS = ITEMS / 4;  // 16-byte vectors a thread
     __shared__ int s_warp[WARPS];
     __shared__ int s_tile;
+    __shared__ unsigned s_epoch;
     __shared__ int s_prefix;
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const unsigned tag_a = 2u * epoch;
-    const unsigned tag_p = 2u * epoch + 1u;
+    unsigned long long* status = scratch + STATUS_WORDS;
 
-    if (tid == 0) s_tile = draw_tile(counter, epoch);
+    if (tid == 0) {
+        unsigned e;
+        s_tile = draw_tile(scratch, &e);
+        s_epoch = e;
+    }
     __syncthreads();
     const int tile = s_tile;
+    const unsigned epoch = s_epoch;
+    // Past the last epoch the call wraps: its last block to finish zeroes
+    // the scratch.  Otherwise the last tile's block stores the epoch.
+    const bool wrap = epoch + 1u >= epoch_end;
+    const unsigned tag_a = 2u * epoch;
+    const unsigned tag_p = 2u * epoch + 1u;
     const long long base = (long long)tile * TILE + (long long)warp * (32 * ITEMS);
 
     // Round r of lane l: the 4 elements at base + (r*32 + l)*4.
@@ -220,6 +298,15 @@ scan_kernel(const int* __restrict__ in, int* __restrict__ out, unsigned long lon
         if (lane == 0) s_prefix = prefix;
     }
     __syncthreads();
+    // The epoch stored, or in a wrap call the block counted finished (and
+    // the scratch zeroed by the last), while the other warps write their
+    // outputs.
+    if (!wrap && tile == tiles - 1 && tid == 0) store_epoch(scratch, epoch);
+    if (wrap && warp == 0) {
+        bool last = false;
+        if (lane == 0) last = finish_block(scratch, epoch, tiles);
+        if (__shfl_sync(FULL, last, 0)) zero_scratch(scratch, words, lane);
+    }
     const int seed = Op<MAX>::combine(s_prefix, warp > 0 ? s_warp[warp - 1] : Op<MAX>::neutral());
 #pragma unroll
     for (int r = 0; r < ROUNDS; ++r) {
@@ -238,36 +325,37 @@ scan_kernel(const int* __restrict__ in, int* __restrict__ out, unsigned long lon
 }
 
 template <bool MAX>
-cudaError_t launch(const int* in, int* out, unsigned long long* scratch, long long n, unsigned epoch,
-                   cudaStream_t stream) {
+cudaError_t launch(const int* in, int* out, unsigned long long* scratch, long long words, long long n,
+                   unsigned epoch_end, cudaStream_t stream) {
     const long long tiles = (n + TILE - 1) / TILE;
     const bool vec_in = (reinterpret_cast<uintptr_t>(in) & 15) == 0;
     const bool vec_out = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-    // scratch[0] is the tile counter, scratch[1 + i] tile i's status word
     scan_kernel<MAX><<<(unsigned)tiles, THREADS, 0, stream>>>(
-        in, out, scratch + 1, scratch, n, epoch, vec_in, vec_out);
+        in, out, scratch, words, n, tiles, epoch_end, vec_in, vec_out);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// Elements a tile, so the caller can size the scratch: 1 + ceil(n / tile)
+// Elements a tile, so the caller can size the scratch: 3 + ceil(n / tile)
 // 64-bit words.
 extern "C" int gsplat_scan_tile() { return TILE; }
 
-// Inclusive scan of in[0..n) into out[0..n) in one launch.  `scratch`: 1 +
-// ceil(n / gsplat_scan_tile()) 64-bit words that no other call uses at
-// the same time, zeroed when allocated and then written only by this
-// entry.  `epoch`: in [1, 2^31 - 1), greater than that of every earlier
-// call on this scratch since it last held only zeros.
-// kind: 0 = add, 1 = max.
-extern "C" int gsplat_scan_i32(const void* in, void* out, void* scratch, long long n, int kind,
-                               unsigned epoch, void* stream) {
+// Inclusive scan of in[0..n) into out[0..n) in one launch.  `scratch`:
+// `words` >= 3 + ceil(n / gsplat_scan_tile()) 64-bit words that no other
+// call uses at the same time, zeroed when allocated and then written only
+// by this entry (it keeps its epoch there).  `epoch_end`: in [2, 2^31 - 1];
+// the calls on a scratch take epochs 1, 2, ..., epoch_end - 1 and then start
+// again at 1.  kind: 0 = add, 1 = max.
+extern "C" int gsplat_scan_i32(const void* in, void* out, void* scratch, long long words, long long n, int kind,
+                               unsigned epoch_end, void* stream) {
     if (n <= 0) return 0;
-    if (epoch == 0 || epoch >= 0x7fffffffu) return (int)cudaErrorInvalidValue;
+    if (epoch_end < 2u || epoch_end > 0x7fffffffu) return (int)cudaErrorInvalidValue;
+    if (words < STATUS_WORDS + (n + TILE - 1) / TILE) return (int)cudaErrorInvalidValue;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
     const int* i = static_cast<const int*>(in);
     int* o = static_cast<int*>(out);
     unsigned long long* w = static_cast<unsigned long long*>(scratch);
-    return (int)(kind == 1 ? launch<true>(i, o, w, n, epoch, s) : launch<false>(i, o, w, n, epoch, s));
+    return (int)(kind == 1 ? launch<true>(i, o, w, words, n, epoch_end, s)
+                           : launch<false>(i, o, w, words, n, epoch_end, s));
 }

@@ -174,10 +174,18 @@ def report_stats(stats: "RenderStats", config: RenderConfig = None) -> None:
 
 def warn_if_dropped(binned: "BinnedPairs", config: RenderConfig) -> None:
     """Surface ``dropped_pairs`` of a render (a host read); no-op when
-    ``config.warn_on_drop`` is False."""
+    ``config.warn_on_drop`` is False, and while the stream is captured into a
+    CUDA graph, where a host read is illegal (the JAX package's counterpart
+    is an asynchronous callback that never blocks).  A captured render
+    reports its counter through ``with_stats=True``: the caller reads it
+    after a replay, or defers the read to its next call as
+    ``SceneRegistry`` and the captured training step do."""
     if not config.warn_on_drop:
         return
-    _warn_dropped(binned.dropped_pairs)
+    d = binned.dropped_pairs
+    if d.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    _warn_dropped(d)
 
 
 def tile_grid(width: int, height: int, tile_h: int, tile_w: int) -> Tuple[int, int]:

@@ -75,8 +75,15 @@ def ssim(
     return torch.mean(_ssim_map(pred, target, window_size, sigma, c1, c2))
 
 
+@functools.lru_cache(maxsize=8)
+def _window_on(size: int, sigma: float, device: torch.device) -> torch.Tensor:
+    """The window as a tensor on ``device``, made once: a copy from host
+    memory a call would be a host step inside a captured training step."""
+    return torch.from_numpy(_gaussian_window(size, sigma)).to(device)
+
+
 def _ssim_map(p, t, window_size, sigma, c1, c2):
-    w = torch.from_numpy(_gaussian_window(window_size, sigma)).to(p.device)
+    w = _window_on(window_size, sigma, p.device)
     mu_p = _filter2d_separable(p, w)
     mu_t = _filter2d_separable(t, w)
     mu_pp = mu_p * mu_p

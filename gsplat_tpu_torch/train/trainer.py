@@ -6,7 +6,10 @@ sharded over ``sp`` with the exchange of ``parallel/render_sharded.py``.
 PyTorch's optimizers hold their state and update parameters in place, so the
 step function here is ``step(params, target) → loss`` — the JAX package's
 ``(params, opt_state, target) → (params, opt_state, loss)`` with the first
-two carried by ``params``' tensors and the optimizer itself.
+two carried by ``params``' tensors and the optimizer itself.  Where the JAX
+package jits its single-device step, the port captures it in a CUDA graph
+on the card (``graphs.py``); the sharded step stays eager (its collectives
+run over gloo, which a graph cannot hold).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from ..models.camera import Camera, camera_from_numpy
 from ..parallel import collectives as C
 from ..parallel.mesh import BATCH_AXIS, SPLAT_AXIS, Mesh, pad_to_multiple
 from ..parallel.render_sharded import local_strip_render
+from .. import graphs
+from ..ops.binning import RenderStats, report_stats
 from ..render import render
 from ..utils.config import RenderConfig
 from .loss import render_loss, ssim_strip_map
@@ -30,7 +35,10 @@ from .params import SplatParams, _leaves, splats_from_params
 def default_optimizer(params: SplatParams, lr_pos: float = 1.6e-4) -> torch.optim.Adam:
     """Adam with one parameter group per field, at the per-parameter learning
     rates of standard 3DGS practice (β = (0.9, 0.999), ε = 1e-8, as
-    ``optax.adam``)."""
+    ``optax.adam``).  On CUDA parameters it is ``capturable`` (its step
+    count and bias correction live on the device, in float32 as in
+    ``optax.adam``), so that :func:`make_train_step` can capture its update;
+    PyTorch takes no ``capturable`` Adam on CPU parameters."""
     rates = {
         "pos": lr_pos,
         "quat": 1e-3,
@@ -43,7 +51,21 @@ def default_optimizer(params: SplatParams, lr_pos: float = 1.6e-4) -> torch.opti
         {"params": [tensor], "lr": rates[name], "name": name}
         for name, tensor in params.as_dict().items()
     ]
-    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8, capturable=params.device.type == "cuda")
+
+
+def _require_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Turn ``capturable`` on in every group that has it off, as long as the
+    optimizer holds no state yet; raise otherwise."""
+    for group in optimizer.param_groups:
+        if group.get("capturable", True):
+            continue  # on, or an optimizer without the option
+        if any(optimizer.state.get(p) for p in group["params"]):
+            raise ValueError(
+                "make_train_step captures the update on CUDA parameters, which needs an optimizer built "
+                "with capturable=True (its state already exists, so it cannot be switched on here)"
+            )
+        group["capturable"] = True
 
 
 def make_train_step(
@@ -56,22 +78,116 @@ def make_train_step(
     """Single-device train step: ``step(params, target_rgb) → loss`` (a 0-dim
     tensor on the parameters' device; reading it is the host
     synchronisation).  ``target_rgb``: (H, W, 3) in [0, 1].  ``params`` are
-    the tensors ``optimizer`` was built over; they are updated in place."""
+    the tensors ``optimizer`` was built over; they are updated in place.
+    Each call is one update.
+
+    On CUDA parameters with the kernel backend (``"auto"``/``"cuda"``) the
+    step is the counterpart of the JAX package's ``jax.jit(step)``: a CUDA
+    graph (``graphs.py``).
+      * Call 1 runs eagerly on the capture stream: it builds the kernels,
+        sizes the scan's scratch and creates the optimizer's state.
+      * Call 2 captures the whole update — the render with its binning,
+        ``CompositeSplats`` forward and backward (the compositing kernels and
+        the segment sum), the loss, ``backward()`` and ``optimizer.step()``
+        — after ``zero_grad(set_to_none=True)`` (the captured backward then
+        writes fresh gradients on every replay), and replays it once.
+      * Every later call copies ``target_rgb`` into the graph's target
+        buffer and replays.
+    The loss returned is a copy: the next replay does not overwrite it.  A
+    capture that fails raises; nothing runs eagerly in its place.  The
+    optimizer must be ``capturable`` (:func:`default_optimizer` is): a group
+    without it is switched on before any state exists, else the first call
+    raises.  Several steps may share one optimizer (one a camera): each is
+    its own graph, and all share one memory pool, so they replay one after
+    another.
+
+    What the graph fixes at call 2, and a caller must therefore not change
+    afterwards: the parameter tensors and the optimizer's state tensors (a
+    new ``SplatParams``, ``load_state_dict`` or ``restore_checkpoint``: the
+    step raises — build a new step), every learning rate and the other
+    Python numbers of the optimizer, the config, and the target's shape.
+    The camera is read through its tensors: copying new matrices into
+    ``camera.view``/``camera.proj``/``camera.derived_pos`` moves the camera
+    of every later call.  The parameters' ``.grad`` are the graph's buffers,
+    valid right after a call until another graph replays.  After call 2,
+    ``step.graph`` is the :class:`~gsplat_tpu_torch.graphs.CapturedGraph`
+    (its ``pool_bytes``, its ``launches`` a replay).
+
+    Overflow: the render runs with ``warn_on_drop`` off, and every call
+    reports the previous call's ``dropped_pairs`` (when ``config.warn_on_drop``)
+    at its start — a deferred read, as ``SceneRegistry``'s, which never
+    happens inside a capture — warning once while pairs drop.
+
+    On CPU parameters, and with the ``"tiles"``/``"reference"`` oracles
+    (which read device values on the host), every call is eager."""
+    quiet = dataclasses.replace(config, warn_on_drop=False)
 
     def loss_fn(params, target):
         splats = splats_from_params(params)
-        img = render(splats, camera, config, backend=backend)
+        img, stats = render(splats, camera, quiet, backend=backend, with_stats=True)
         # composite over white background like 3DGS training convention
         rgb = img[..., :3] + (1.0 - img[..., 3:4])
-        return render_loss(rgb, target, lambda_dssim)
+        return render_loss(rgb, target, lambda_dssim), stats.dropped_pairs
 
-    def step(params: SplatParams, target: torch.Tensor) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(params, target)
+    def update(params: SplatParams, target: torch.Tensor):
+        loss, dropped = loss_fn(params, target)
         loss.backward()
         optimizer.step()
-        return loss.detach()
+        return loss.detach(), dropped
 
+    def eager(params: SplatParams, target: torch.Tensor):
+        optimizer.zero_grad(set_to_none=True)
+        return update(params, target)
+
+    st = {"calls": 0, "pending": None, "graph": None}
+
+    def held(params: SplatParams):
+        """What the graph holds the addresses of: the leaves and the
+        optimizer's state tensors."""
+        leaves = tuple(params.as_dict().values())
+        return leaves + tuple(t for p in leaves for t in optimizer.state.get(p, {}).values()
+                              if isinstance(t, torch.Tensor))
+
+    def step(params: SplatParams, target: torch.Tensor) -> torch.Tensor:
+        if st["pending"] is not None:  # the previous call's overflow counter
+            report_stats(RenderStats(dropped_pairs=st["pending"]), config)
+            st["pending"] = None
+        st["calls"] += 1
+        if not params.pos.is_cuda or backend not in ("auto", "cuda"):
+            loss, st["pending"] = eager(params, target)
+            return loss
+        if st["calls"] == 1:
+            _require_capturable(optimizer)
+            loss, st["pending"] = graphs.run_on_capture_stream(eager, params, target, device=params.device)
+            return loss
+        if st["graph"] is None:
+            target_buf = target.detach().to(params.device, torch.float32).clone()
+            dropped_buf = torch.zeros((), dtype=torch.int32, device=params.device)
+
+            def captured():
+                loss, dropped = update(params, target_buf)
+                dropped_buf.copy_(dropped)  # into a buffer outside the graphs' shared pool
+                return loss
+
+            optimizer.zero_grad(set_to_none=True)
+            graph = graphs.capture(captured, warm_up=False, device=params.device)
+            st.update(graph=graph, target=target_buf, dropped=dropped_buf, held=held(params))
+            step.graph = graph
+        else:
+            now = held(params)
+            if len(now) != len(st["held"]) or any(a is not b for a, b in zip(now, st["held"])):
+                raise RuntimeError(
+                    "the parameters or the optimizer's state are not the tensors this step captured "
+                    "(replaced, or loaded with load_state_dict); build a new step"
+                )
+            if tuple(target.shape) != tuple(st["target"].shape):
+                raise ValueError(f"target of shape {tuple(target.shape)}, captured {tuple(st['target'].shape)}")
+            st["target"].copy_(target)
+        loss = st["graph"].replay().clone()
+        st["pending"] = st["dropped"]
+        return loss
+
+    step.graph = None
     return step
 
 

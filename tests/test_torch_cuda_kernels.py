@@ -376,17 +376,30 @@ def test_scan_back_to_back_calls_after_poisoned_scratch(card):
 
 
 def test_scan_refuses_cuda_graph_capture(card):
-    """A replayed launch would reuse its epoch, so the scan raises under
-    stream capture, launches nothing, and works again after it."""
+    """A capture must not allocate the scan's scratch (the zeroing would be
+    replayed): on a capture stream no eager call has sized, the scan raises,
+    counts nothing, and works again after it; once an eager call on that
+    stream has sized it, the same capture replays bit-equal (each replay
+    takes a fresh epoch on the device)."""
     x = torch.arange(10_000, dtype=torch.int32, device=card)
-    kscan.scan_i32(x, "add")
+    side = torch.cuda.Stream()
     before = kscan.launches
     graph = torch.cuda.CUDAGraph()
-    with pytest.raises(RuntimeError, match="CUDA graph"):
-        with torch.cuda.graph(graph):
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph, stream=side):
             kscan.scan_i32(x, "add")
     assert kscan.launches == before
     assert torch.equal(kscan.scan_i32(x, "max"), x)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kscan.scan_i32(x, "add")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = kscan.scan_i32(x, "add")
+    for _ in range(3):
+        graph.replay()
+        assert torch.equal(out, kscan.scan_i32_plain(x, "add"))
 
 
 @pytest.mark.parametrize("case", ["float32", "packed", "depth", "strided"])

@@ -202,7 +202,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "gsplat_tpu_torch.ops.kernels.scan, gsplat_tpu_torch.ops.kernels.composite, "
         "gsplat_tpu_torch.ops.kernels._build, gsplat_tpu_torch.scene, gsplat_tpu_torch.io.ply, "
         "gsplat_tpu_torch.io.attributes, gsplat_tpu_torch.io.json_io, gsplat_tpu_torch.io.native, "
-        "gsplat_tpu_torch.ops.queries\n"
+        "gsplat_tpu_torch.ops.queries, gsplat_tpu_torch.graphs\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'jaxlib' or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.')]\n"
         "assert not bad, bad\n"

@@ -62,43 +62,57 @@ def test_scan_rejects_what_the_kernel_does_not_take():
 
 
 def test_scan_scratch_sizing_and_epochs(monkeypatch):
-    """The kernel's scratch: the counter and one status word a tile of 8192,
-    and a new epoch every call that never leaves [1, 2^31 - 1) (0 and the
-    top would alias the tags of another epoch); when the epochs run out,
-    every scratch is zeroed before they start again."""
-    assert tscan.scratch_words(1) == 2
-    assert tscan.scratch_words(8192) == 2 and tscan.scratch_words(8193) == 3
-    assert tscan.scratch_words((1 << 24) + 3) == 1 + 2049
-    bufs = {(0, 1): torch.full((3,), -5, dtype=torch.int64), (0, 2): torch.full((9,), 7, dtype=torch.int64)}
-    monkeypatch.setattr(tscan, "_scratch", bufs)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
-    monkeypatch.setattr(tscan, "_epoch", 2**31 - 4)
-    seen = []
-    for _ in range(4):
-        seen.append(tscan._next_epoch())
-        assert all(bool((buf == 0).all()) == (seen[-1] < seen[0]) for buf in bufs.values()), seen
-    assert seen == [2**31 - 3, 2**31 - 2, 1, 2]
+    """The kernel's scratch: the epoch word, the tile counter, the count of
+    finished blocks and one status word a tile of 8192.  The epochs live on
+    the device (csrc/scan.cu); the wrapper passes only where they end, which
+    the test hook sets within [2, 2^31 - 1] (0 and the top would alias the
+    tags of another epoch) and every launch reads anew."""
+    assert tscan.scratch_words(1) == 4
+    assert tscan.scratch_words(8192) == 4 and tscan.scratch_words(8193) == 5
+    assert tscan.scratch_words((1 << 24) + 3) == 3 + 2049
+    assert tscan.EPOCH_END == 2**31 - 1 and tscan._epoch_end == tscan.EPOCH_END
+    monkeypatch.setattr(tscan, "_epoch_end", tscan._epoch_end)
+    tscan.set_epoch_end(3)
+    assert tscan._epoch_end == 3
+    for bad in (0, 1, 2**31):
+        with pytest.raises(ValueError):
+            tscan.set_epoch_end(bad)
+    assert tscan._epoch_end == 3
+    tscan.set_epoch_end()
+    assert tscan._epoch_end == 2**31 - 1
 
 
 def test_grown_scratch_holds_only_zeros(monkeypatch):
     """The scratch is allocated and grown zeroed (the tags of epoch 0, which
-    no call has), whatever the block the allocator hands back held: here
-    every fresh block holds the next epoch's tile counter (epoch << 32) | 5
-    and its status words (2 * epoch) << 32, as a block of this process's
-    earlier data can, with the allocation moved onto the CPU."""
-    e = tscan._epoch + 1
+    no call has, and an epoch word that starts the epochs at 1), whatever
+    the block the allocator hands back held: here every fresh block holds
+    the first epoch's counters (1 << 32) | 5 and its status words
+    (2 * 1) << 32, as a block of this process's earlier data can, with the
+    allocation moved onto the CPU.  A scratch sized by an eager call is
+    kept for good once a capture has read it."""
+    e = 1  # a fresh scratch's first call takes epoch 1
     real_empty = torch.empty
 
     def handed_back(*size, **kw):
         block = real_empty(*size, **kw).fill_((2 * e) << 32)
-        block.view(-1)[0] = (e << 32) | 5
+        block.view(-1)[0] = e - 1
+        block.view(-1)[1:3] = (e << 32) | 5
         return block
 
     monkeypatch.setattr(tscan, "_DEVICE_TYPE", "cpu")
     monkeypatch.setattr(tscan, "_scratch", {})
+    monkeypatch.setattr(tscan, "_captured", {})
     monkeypatch.setattr(torch, "empty", handed_back)
     first = tscan._scratch_for(0, 1, tscan.scratch_words(5 * tscan.TILE + 3))
-    assert first.device.type == "cpu" and first.numel() == 7 and not bool(first.any())
-    grown = tscan._scratch_for(0, 1, 9)  # grows to twice the old size
-    assert grown.numel() == 14 and not bool(grown.any()) and tscan._scratch[(0, 1)] is grown
-    assert tscan._scratch_for(0, 1, 14) is grown  # no growth: the same block, as the kernel left it
+    assert first.device.type == "cpu" and first.numel() == 9 and not bool(first.any())
+    grown = tscan._scratch_for(0, 1, 10)  # grows to twice the old size
+    assert grown.numel() == 18 and not bool(grown.any()) and tscan._scratch[(0, 1)] is grown
+    assert tscan._scratch_for(0, 1, 18) is grown  # no growth: the same block, as the kernel left it
+    # under capture: the sized scratch is used and kept; a missing or short one raises
+    assert tscan._scratch_for(0, 1, 18, capturing=True) is grown and tscan._captured[grown.data_ptr()] is grown
+    with pytest.raises(RuntimeError, match="capture"):
+        tscan._scratch_for(0, 1, 19, capturing=True)
+    with pytest.raises(RuntimeError, match="capture"):
+        tscan._scratch_for(0, 2, 4, capturing=True)
+    regrown = tscan._scratch_for(0, 1, 19)
+    assert regrown.numel() == 36 and tscan._captured[grown.data_ptr()] is grown
