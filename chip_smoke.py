@@ -39,7 +39,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              tile mapping of the sharded renderer on the grids (2, 2) at (0, 0)
              and (1, 1), (1, 4) at (0, 3), (4, 1) at (3, 0) and a contiguous
              strip at tile row 17: the forward and its checkpoint variant
-             bit-equal, the backward rows as above).  Every backward call, here and in
+             bit-equal, the backward rows as above; the projection's two
+             kernels at N = 1, 255, 257 and 1M over sh_order 0-3 x
+             tight_footprint x only_sh, in front of the camera, half behind
+             it and with an explicit camera position, with a black splat of
+             zero SH and an axis-aligned one: the forward bit-equal to its
+             plain version, the backward bit-equal or within 1e-6 of each
+             field's max to its plain version (the analytic VJP), and both
+             backwards within 2e-4 of each field's max and in the 2-norm of
+             autograd through the plain forward; with NaN inputs the
+             forward NaN where the plain version is, bit-equal elsewhere).
+             Every backward call, here and in
              the kernels phase, also runs twice (bit-equal) and through its
              audit instance (no pixel with alpha != 0 in a warp the reach
              test skipped).  Every time below is taken by
@@ -48,7 +58,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              plain tiled renderer and the O(N*H*W) oracle, and its gradient
              through the kernels against autograd through the plain tiled
              renderer; the same with the depth test against a slanted plane;
-             a small wireframe against the O(N*H*W) wireframe oracle.
+             a small wireframe against the O(N*H*W) wireframe oracle.  The
+             plain side projects through project_fields_plain under autograd
+             (plain_projection), so it shares no kernel with the main path:
+             no launch of project_fwd or project_bwd is counted there.
   sharded_path  4 ranks (processes started with the spawn method, one gloo
              group) sharing the one card render the main path's scene and
              settings through render_sharded on the cyclic 2 x 2 tile grid:
@@ -87,8 +100,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              jits it) and replayed over the five cameras, each camera's
              matrices copied into the captured camera's tensors: each image
              bit-equal to the eager frame of its camera, dropped_pairs 0,
-             the counters (zeroed, read) 2 scans + 1 forward a replay, and
-             one replay's trace holding the same kernels;
+             the counters (zeroed, read) 2 scans + 1 projection + 1
+             forward a replay, and one replay's trace holding the same
+             kernels;
              median_graph_frame_ms beside median_frame_ms.
   stages     the main path's stages timed one by one (where a frame's time
              goes).
@@ -100,8 +114,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              then replays); beside it the same four lines run eagerly here
              with the same capturable optimizer from the same start: the
              losses and the parameters bit-equal, the same counts, and a
-             replay's trace holding 4 scans, 1 forward, 1 backward and 1
-             segment sum; median_step_ms (captured) beside
+             replay's trace holding 4 scans, 1 projection forward and 1
+             backward, 1 forward, 1 backward and 1 segment sum;
+             median_step_ms (captured) beside
              median_eager_step_ms.
   train_stages  one training step taken apart (where a step's time goes).
   host_scene_path  the same scene composited into a host scene: float32
@@ -121,7 +136,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              frames rendered through include_in_render_pass / render /
              post_render, re-sorted every frame and then sorted once (a
              movement threshold above the orbit's): launch counters zeroed
-             just before and read just after (2 scans + 1 forward a frame),
+             just before and read just after (2 scans + 1 projection + 1
+             forward a frame),
              the registry's deferred dropped_pairs 0, each frame bit-equal
              to render_cuda of the registry's cached rebased scene with its
              origin camera and the order it used, at most 1e-3 of the
@@ -155,9 +171,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              has live, reaches and keeps; the segment sum's bound on 32-byte
              sectors beside its useful-byte bound, and its time on a float32
              space); the scans' device operations a call from a profiler
-             trace; the strided rows at rank 0's inputs on the sharded path.
-             The scan and forward rows' launches are the main path's and the
-             scene path's registry frames (launches_by_path).
+             trace; the strided rows at rank 0's inputs on the sharded path;
+             the projection's forward at the main path's inputs and its
+             backward at the train path's, each with its device time from a
+             trace and its share of the bytes bound.  The scan, forward and
+             projection rows' launches are the main path's and the scene
+             path's registry frames (launches_by_path).
 
 --profile also traces three frames and three training steps, eager and
 replayed from their graphs, and prints each one's device_busy_share.
@@ -170,6 +189,7 @@ The last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import itertools
@@ -200,6 +220,7 @@ from gsplat_tpu_torch.ops import wireframe as wire
 from gsplat_tpu_torch.ops.kernels import _build
 from gsplat_tpu_torch.ops.kernels import composite as kcomp
 from gsplat_tpu_torch.ops.kernels import probes as kprobes
+from gsplat_tpu_torch.ops.kernels import projection as kproj
 from gsplat_tpu_torch.ops.kernels import scan as kscan
 from gsplat_tpu_torch.ops.kernels import segsum as ksegsum
 from gsplat_tpu_torch.ops.projection import ROW_VIEWZ, project_splats
@@ -354,6 +375,8 @@ def zero_counters():
     kcomp.launches_bwd_depth = 0
     kcomp.launches_bwd_strided = 0
     ksegsum.launches = 0
+    kproj.launches_fwd = 0
+    kproj.launches_bwd = 0
     kprobes.launches.update({k: 0 for k in kprobes.launches})
 
 
@@ -371,6 +394,8 @@ def read_counters():
         "composite_bwd_depth": kcomp.launches_bwd_depth,
         "composite_bwd_strided": kcomp.launches_bwd_strided,
         "segsum": ksegsum.launches,
+        "project_fwd": kproj.launches_fwd,
+        "project_bwd": kproj.launches_bwd,
         "alu_probe": sum(kprobes.launches[v] for v in kprobes.ALU_VARIANTS),
         "gather_probe": sum(kprobes.launches[a] for a in kprobes.GATHER_ACCESSES),
     }
@@ -558,6 +583,31 @@ def check_strided(fwd, b, offsets, label, seed):
 # (strides, offsets in tiles) of the strided checks: the cyclic grids of the
 # sharded renderer, and a contiguous strip at a row offset
 STRIDED_CHECKS = (((2, 2), (0, 0)), ((2, 2), (1, 1)), ((1, 4), (0, 3)), ((4, 1), (3, 0)), ((1, 1), (17, 0)))
+
+
+class _PlainProjectSplats:
+    """Stands in for ProjectSplats: the plain forward, differentiated by
+    autograd, in place of the two kernels."""
+
+    apply = staticmethod(kproj.project_fields_plain)
+
+
+@contextlib.contextmanager
+def plain_projection():
+    """project_splats through its plain forward under autograd, for the plain
+    side of a comparison: on CUDA tensors project_splats otherwise runs
+    project_fwd and project_bwd, whatever the renderer's backend.  Fails if a
+    projection kernel launched inside."""
+    from gsplat_tpu_torch.ops import projection as proj_mod
+
+    before = (kproj.launches_fwd, kproj.launches_bwd)
+    saved, proj_mod.ProjectSplats = proj_mod.ProjectSplats, _PlainProjectSplats
+    try:
+        yield
+    finally:
+        proj_mod.ProjectSplats = saved
+    if (kproj.launches_fwd, kproj.launches_bwd) != before:
+        fail("a projection kernel launched on the plain side of a comparison")
 
 
 def splat_grads(splats, cam, cfg, weights, backend, bgd=None):
@@ -840,6 +890,134 @@ def check_scan_capture(g):
     return out
 
 
+# Projection kernels against their plain versions: the forward bit for bit
+# (it repeats ATen's rounding op for op); the backward against its plain
+# version (the analytic VJP in the kernel's order) bit for bit where the two
+# round alike, else within PROJ_BWD_TOL of each field's max |g|; both
+# backwards against autograd of the plain forward within GRAD_TOL of each
+# field's max |g| and in the 2-norm (autograd sums in another order, and the
+# VJP is not additive at an axis-aligned eigenvector, ROADMAP.md queue 3).
+PROJ_BWD_TOL = 1e-6
+PROJ_SIZES = (1, 255, 257, 1_000_000)
+PROJ_MODES = tuple((sh, tight, only) for sh in range(4) for tight in (False, True) for only in (False, True))
+
+
+def bits_equal(a, b):
+    """Equal bit for bit (NaN payloads and the sign of zero included)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def proj_args(splats, cam, sh_order=3, tight=True, only_sh=False):
+    """The projection kernels' arguments for a scene and a camera, as
+    ops/projection.py hands them over."""
+    f32 = torch.float32
+    return ([getattr(splats, f).to(f32).contiguous() for f in SPLAT_FIELDS]
+            + [cam.view, cam.proj, cam.position.to(f32).contiguous(), cam.width, cam.height, sh_order, tight,
+               only_sh])
+
+
+def field_rel_errs(got, want):
+    """Per field: max |diff| and the 2-norm of the difference, each over the
+    field's own max |want| and 2-norm (None where both are None)."""
+    out = {}
+    for f, a, b in zip(SPLAT_FIELDS, got, want):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                fail(f"projection backward: gradient of {f} is {a is None and 'missing' or 'extra'}")
+            continue
+        scale = float(b.abs().max())
+        norm = float(b.norm())
+        d = (a - b).abs()
+        out[f] = (float(d.max()) / scale if scale else float(d.max()),
+                  float(d.norm()) / norm if norm else float(d.norm()))
+    return out
+
+
+def check_projection():
+    """project_fwd against project_fields_plain (bit-equal) and project_bwd
+    against project_fields_bwd_plain and autograd of the plain forward, at
+    N = 1, 255, 257 and 1M over sh_order 0-3 x tight_footprint x only_sh, on
+    a scene in front of the camera and on one half behind it (camera at the
+    origin), with an explicit camera position, a black splat with zero SH
+    (max0's tie) and an axis-aligned splat (ay, bx exactly -0.0); then NaN
+    inputs (the forward's NaN where the plain version's, bit-equal
+    elsewhere)."""
+    res = {"forward_cases": 0, "forward": "bit-equal", "backward_cases": 0, "backward_bit_equal_cases": 0,
+           "backward_worst_rel_err_vs_plain": 0.0, "vs_autograd_worst_max_rel": 0.0,
+           "vs_autograd_worst_2norm_rel": 0.0, "backward_tolerance_vs_plain": PROJ_BWD_TOL,
+           "tolerance_vs_autograd": GRAD_TOL}
+    front = orbit_cameras(640, 360, 1)[0]
+    behind = gt.make_camera(eye=[0.0, 0.0, 0.0], target=[0, 0, -1], width=640, height=360, device=DEV)
+    explicit = gt.camera_from_numpy(front.view.cpu().numpy(), front.proj.cpu().numpy(), 640, 360,
+                                    explicit_camera_pos=np.array([0.3, 0.2, 2.5], np.float32), device=DEV)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(13)
+    for n in PROJ_SIZES:
+        scene = bench_scene(n, seed=20 + n % 7)
+        if n >= 2:
+            color, sh, orient = scene.color.clone(), scene.sh.clone(), scene.orient.clone()
+            color[:, 0] = 0.0
+            sh[:, 0] = 0.0
+            orient[:, 1] = torch.tensor([0.0, 0.0, 0.0, 1.0], device=DEV)
+            scene = dataclasses.replace(scene, color=color, sh=sh, orient=orient)
+        for cam_name, cam in (("front", front), ("behind", behind), ("explicit_position", explicit)):
+            if cam_name == "explicit_position" and n != 257:
+                continue
+            for sh_order, tight, only_sh in PROJ_MODES:
+                label = f"projection n={n} {cam_name} sh={sh_order} tight={tight} only_sh={only_sh}"
+                args = proj_args(scene, cam, sh_order, tight, only_sh)
+                out = kproj.project_fields(*args)
+                torch.cuda.synchronize()
+                if not bits_equal(out, kproj.project_fields_plain(*args)):
+                    fail(f"{label}: project_fwd differs from its plain version")
+                res["forward_cases"] += 1
+                cot = torch.randn((16, n), generator=g, device=DEV)
+                got = kproj.project_fields_bwd(*args, cot)
+                torch.cuda.synchronize()
+                plain = kproj.project_fields_bwd_plain(*args, cot)
+                e_plain = field_rel_errs(got, plain)
+                if all(bits_equal(a, b) for a, b in zip(got, plain) if a is not None):
+                    res["backward_bit_equal_cases"] += 1
+                worst = max(m for m, _ in e_plain.values())
+                if not worst <= PROJ_BWD_TOL or not all(torch.isfinite(a).all() for a in got if a is not None):
+                    fail(f"{label}: project_bwd against its plain version {e_plain} (tolerance {PROJ_BWD_TOL})")
+                res["backward_worst_rel_err_vs_plain"] = max(res["backward_worst_rel_err_vs_plain"], worst)
+                leaves = [a.clone().requires_grad_(True) for a in args[:6]]
+                with torch.enable_grad():
+                    f = kproj.project_fields_plain(*leaves, *args[6:])
+                    auto = torch.autograd.grad((f * cot).sum(), leaves, allow_unused=True)
+                for which, grads in (("kernel", got), ("plain", plain)):
+                    e = field_rel_errs(grads, auto)
+                    m = max(v[0] for v in e.values())
+                    n2 = max(v[1] for v in e.values())
+                    if not (m <= GRAD_TOL and n2 <= GRAD_TOL):
+                        fail(f"{label}: the {which} backward against autograd of the plain forward {e} "
+                             f"(tolerance {GRAD_TOL})")
+                    res["vs_autograd_worst_max_rel"] = max(res["vs_autograd_worst_max_rel"], m)
+                    res["vs_autograd_worst_2norm_rel"] = max(res["vs_autograd_worst_2norm_rel"], n2)
+                res["backward_cases"] += 1
+    # NaN inputs: a NaN position, opacity, scale and SH coefficient
+    scene = bench_scene(257, seed=29)
+    pos, op, scale, sh = scene.pos.clone(), scene.opacity.clone(), scene.scale.clone(), scene.sh.clone()
+    pos[0, 3] = float("nan")
+    op[5] = float("nan")
+    scale[1, 9] = float("nan")
+    sh[4, 11] = float("nan")
+    scene = dataclasses.replace(scene, pos=pos, opacity=op, scale=scale, sh=sh)
+    nan_cases = 0
+    for sh_order, tight, only_sh in PROJ_MODES:
+        args = proj_args(scene, front, sh_order, tight, only_sh)
+        out, want = kproj.project_fields(*args), kproj.project_fields_plain(*args)
+        nan_w = torch.isnan(want)
+        if not torch.equal(torch.isnan(out), nan_w) or not bits_equal(out[~nan_w], want[~nan_w]):
+            fail(f"projection with NaN inputs sh={sh_order} tight={tight} only_sh={only_sh}: the forward's NaN "
+                 "entries or its other entries differ from the plain version's")
+        nan_cases += 1
+    res["nan_input_cases"] = nan_cases
+    res["nan_inputs"] = "NaN where the plain version has NaN, bit-equal elsewhere"
+    return res
+
+
 def phase_checks():
     """Small and ragged shapes: every kernel against its plain version."""
     g = torch.Generator(device=DEV)
@@ -1006,6 +1184,7 @@ def phase_checks():
         bwd["cases"] += 1
     bwd["bwd_worst_rel_err"] = max(bwd["bwd_worst_rel_err"], strided_bwd)
     probe = check_probes()
+    projection = check_projection()
     emit("checks", scan_cases=scan_cases, scan="bit-equal", scan_stress_calls=stress_calls,
          scan_stress="bit-equal, scratch poisoned every 25 calls", scan_growth_over_next_epoch_tags=scan_growth,
          scan_capture=scan_capture,
@@ -1019,7 +1198,7 @@ def phase_checks():
          checkpoint_max_abs_err=bwd["checkpoint_max_abs_err"],
          composite_bwd_worst_row_rel_err=bwd["bwd_worst_rel_err"], composite_bwd_row_tolerance=GRAD_ROW_TOL,
          segsum_worst_row_rel_err=bwd["segsum_worst_rel_err"], segsum_row_tolerance=SEGSUM_TOL,
-         segsum_two_runs="bit-equal")
+         segsum_two_runs="bit-equal", projection=projection)
 
 
 def phase_reference():
@@ -1032,8 +1211,9 @@ def phase_reference():
     for payload in ("float32", "packed"):
         cfg = gt.RenderConfig(tile_capacity=1024, transmittance_eps=0.0, payload_dtype=payload)
         main = gt.render(splats, cam, cfg, backend="auto")
-        tiles = gt.render(splats, cam, cfg, backend="tiles")
-        oracle = gt.render(splats, cam, cfg, backend="reference")
+        with plain_projection():
+            tiles = gt.render(splats, cam, cfg, backend="tiles")
+            oracle = gt.render(splats, cam, cfg, backend="reference")
         e_tiles = float((main - tiles).abs().max())
         e_oracle = float((main - oracle).abs().max())
         if not (e_tiles < IMAGE_TOL and e_oracle < IMAGE_TOL):
@@ -1041,8 +1221,9 @@ def phase_reference():
         if float(main[..., 3].max()) < 0.5:
             fail("reference scene rendered (nearly) empty")
         out[payload] = {"vs_tiles": e_tiles, "vs_oracle": e_oracle}
-    # The whole gradient d splats through the three kernels against autograd
-    # through the plain tiled renderer.
+    # The whole gradient d splats through the kernels (projection forward and
+    # backward, compositor forward and backward, segment sum) against autograd
+    # through the plain projection and the plain tiled renderer.
     gw = torch.Generator(device=DEV)
     gw.manual_seed(6)
     weights = torch.randn((120, 200, 4), generator=gw, device=DEV)
@@ -1050,7 +1231,8 @@ def phase_reference():
     for payload in ("float32", "packed"):
         cfg = gt.RenderConfig(tile_capacity=1024, transmittance_eps=0.0, payload_dtype=payload)
         g_main = splat_grads(splats, cam, cfg, weights, "auto")
-        g_tiles = splat_grads(splats, cam, cfg, weights, "tiles")
+        with plain_projection():
+            g_tiles = splat_grads(splats, cam, cfg, weights, "tiles")
         grad_err[payload] = {}
         for f in SPLAT_FIELDS:
             scale = max(1.0, float(g_tiles[f].abs().max()))
@@ -1067,8 +1249,9 @@ def phase_reference():
     bgd, bg_rgba = occluder(200, 120)
     cfg = gt.RenderConfig(tile_capacity=1024, transmittance_eps=0.0)
     main = gt.render(splats, cam, cfg, backend="auto", background_rgba=bg_rgba, background_depth=bgd)
-    tiles = gt.render(splats, cam, cfg, backend="tiles", background_rgba=bg_rgba, background_depth=bgd)
-    oracle = gt.render(splats, cam, cfg, backend="reference", background_rgba=bg_rgba, background_depth=bgd)
+    with plain_projection():
+        tiles = gt.render(splats, cam, cfg, backend="tiles", background_rgba=bg_rgba, background_depth=bgd)
+        oracle = gt.render(splats, cam, cfg, backend="reference", background_rgba=bg_rgba, background_depth=bgd)
     untested = gt.render(splats, cam, cfg, backend="auto", background_rgba=bg_rgba)
     e_tiles = float((main - tiles).abs().max())
     e_oracle = float((main - oracle).abs().max())
@@ -1079,7 +1262,8 @@ def phase_reference():
         fail("reference depth test: the plane killed nothing")
     out["depth_test"] = {"vs_tiles": e_tiles, "vs_oracle": e_oracle, "vs_untested": killed}
     g_main = splat_grads(splats, cam, cfg, weights, "auto", bgd=bgd)
-    g_tiles = splat_grads(splats, cam, cfg, weights, "tiles", bgd=bgd)
+    with plain_projection():
+        g_tiles = splat_grads(splats, cam, cfg, weights, "tiles", bgd=bgd)
     grad_err["depth_test"] = {}
     for f in SPLAT_FIELDS:
         scale = max(1.0, float(g_tiles[f].abs().max()))
@@ -1094,8 +1278,9 @@ def phase_reference():
     # alike.  So: equal but on at most WIRE_EDGE_SHARE of the pixels.
     wcfg = dataclasses.replace(cfg, pairs_per_splat=12.0)
     w_main = gt.render_wireframe(splats, cam, wcfg, line_px=LINE_PX, background=[0.2, 0.3, 0.4])
-    w_oracle = gt.render_wireframe(splats, cam, wcfg, line_px=LINE_PX, background=[0.2, 0.3, 0.4],
-                                   backend="reference")
+    with plain_projection():
+        w_oracle = gt.render_wireframe(splats, cam, wcfg, line_px=LINE_PX, background=[0.2, 0.3, 0.4],
+                                       backend="reference")
     differ = (w_main - w_oracle).abs().amax(dim=-1) > IMAGE_TOL
     share = float(differ.float().mean())
     if share > WIRE_EDGE_SHARE or float(w_main[..., 3].sum()) < 100:
@@ -1137,7 +1322,8 @@ def phase_main_path(n_splats, width, height, frames):
     peak = torch.cuda.max_memory_allocated()
 
     # serving pays for no training: no checkpoints, no backward, no gradient map
-    want = expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames, composite_fwd=frames)
+    want = expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames, composite_fwd=frames,
+                         project_fwd=frames)
     if counts != want:
         fail(f"main path launch counts {counts}, expected {want}")
     if any(dropped):
@@ -1340,7 +1526,7 @@ def phase_train_path(splats, cam, cfg, steps):
 
     want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps,
                          composite_fwd=steps, composite_fwd_checkpoint=steps,
-                         composite_bwd=steps, segsum=steps)
+                         composite_bwd=steps, segsum=steps, project_fwd=steps, project_bwd=steps)
     if counts != want:
         fail(f"train path launch counts {counts}, expected {want}")
     if not all(math.isfinite(x) for x in warm + losses):
@@ -1353,7 +1539,7 @@ def phase_train_path(splats, cam, cfg, steps):
         fail(f"captured step: a replay's trace holds {traced['our_kernels_per_call']}, the counters {per_step}")
     # The traced calls moved the parameters: the eager comparison below
     # takes as many steps before it compares them.
-    extra = 1 + 2 * traced["trace_sessions"]
+    extra = traced["calls_made"]
 
     # The eager step: the four lines of make_train_step with the same
     # capturable optimizer, from the same start.
@@ -1497,7 +1683,7 @@ def phase_host_scene(splats, cams, frames, main_cfg):
         images.append(image)
     counts = read_counters()
     want = expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames,
-                         composite_fwd=frames, composite_fwd_depth=frames)
+                         composite_fwd=frames, composite_fwd_depth=frames, project_fwd=frames)
     if counts != want:
         fail(f"host-scene frames: launch counts {counts}, expected {want}")
     if any(dropped):
@@ -1532,7 +1718,7 @@ def phase_host_scene(splats, cams, frames, main_cfg):
     counts = read_counters()
     want = expect_counts(scan_i32_add=1, scan_i32_max=3, scan_i32=4, composite_fwd=1,
                          composite_fwd_checkpoint=1, composite_fwd_depth=1, composite_bwd=1,
-                         composite_bwd_depth=1, segsum=1)
+                         composite_bwd_depth=1, segsum=1, project_fwd=1, project_bwd=1)
     if counts != want:
         fail(f"host-scene gradient: launch counts {counts}, expected {want}")
     grad_max = {}
@@ -1568,9 +1754,11 @@ def phase_host_scene(splats, cams, frames, main_cfg):
     counts_o = read_counters()
     wire_imgs = [gt.render_wireframe(splats, c, wcfg, line_px=LINE_PX) for c in cams[:3]]
     over_imgs = [gt.render_wire_over(splats, c, wcfg, line_px=LINE_PX) for c in cams[:3]]
-    if counts_w != expect_counts(scan_i32_add=3, scan_i32_max=3, scan_i32=6, composite_fwd=3, composite_fwd_wire=3):
+    if counts_w != expect_counts(scan_i32_add=3, scan_i32_max=3, scan_i32=6, composite_fwd=3, composite_fwd_wire=3,
+                                 project_fwd=3):
         fail(f"wireframe frames: launch counts {counts_w}")
-    if counts_o != expect_counts(scan_i32_add=6, scan_i32_max=6, scan_i32=12, composite_fwd=6, composite_fwd_wire=3):
+    if counts_o != expect_counts(scan_i32_add=6, scan_i32_max=6, scan_i32=12, composite_fwd=6, composite_fwd_wire=3,
+                                 project_fwd=6):
         fail(f"wire-over frames: launch counts {counts_o}")
     args, b = wire._wireframe_inputs(splats, cam, wcfg, LINE_PX)
     if int(b.dropped_pairs) != 0:
@@ -1684,7 +1872,7 @@ def registry_run(reg, ids, cams, label):
         images.append(image)
     counts = read_counters()
     n = len(cams)
-    want = expect_counts(scan_i32_add=n, scan_i32_max=n, scan_i32=2 * n, composite_fwd=n)
+    want = expect_counts(scan_i32_add=n, scan_i32_max=n, scan_i32=2 * n, composite_fwd=n, project_fwd=n)
     if counts != want:
         fail(f"scene_path {label}: launch counts {counts}, expected {want}")
     dropped = [int(s.dropped_pairs) for s in stats]
@@ -1895,7 +2083,8 @@ def phase_ply_fit(tmp, steps=120):
     counts = read_counters()
     end = view0_psnr()
     want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps, composite_fwd=steps,
-                         composite_fwd_checkpoint=steps, composite_bwd=steps, segsum=steps)
+                         composite_fwd_checkpoint=steps, composite_bwd=steps, segsum=steps,
+                         project_fwd=steps, project_bwd=steps)
     if counts != want:
         fail(f"ply fit: launch counts {counts}, expected {want}")
     if not (math.isfinite(end) and end > start + 3.0 and end > 26.0):
@@ -1952,19 +2141,26 @@ def phase_calibrate(splats, cam, cfg, main_ms, train_cfg, step_ms, host_cfg, hos
     return res, by_probe
 
 
-def device_events(path):
+def device_events(path, after=None):
     """(name, microseconds) of every device-side event (kernel, copy, fill)
-    of a Chrome trace written by stop_trace."""
+    of a Chrome trace written by stop_trace; with `after`, only those that
+    start after the host range of that name began."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
+    t0 = min((float(e["ts"]) for e in events if e.get("ph") == "X" and e.get("name") == after),
+             default=None) if after else None
+    if after and t0 is None:
+        fail(f"the profiler trace holds no host range {after!r}")
     return [(e["name"], float(e["dur"])) for e in events
-            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and (t0 is None or float(e["ts"]) >= t0)]
 
 
 # The port's production kernels by counter name, and what their device
 # events' names hold.
 OUR_KERNELS = {"scan_i32": "scan_kernel", "composite_fwd": "composite_fwd_kernel",
-               "composite_bwd": "composite_bwd_kernel", "segsum": "segsum_kernel"}
+               "composite_bwd": "composite_bwd_kernel", "segsum": "segsum_kernel",
+               "project_fwd": "project_fwd_kernel", "project_bwd": "project_bwd_kernel"}
 
 # Traces a traced_calls may take: a session whose trace comes back with
 # fewer device events than calls (every traced call enqueues at least one;
@@ -1976,15 +2172,21 @@ TRACE_ATTEMPTS = 5
 
 def traced_calls(fn, calls):
     """fn() `calls` times under torch.profiler: the device operations one
-    call enqueues and their device microseconds a call, from the trace."""
+    call enqueues and their device microseconds a call, from the trace.
+    One more call runs first in the session and is not counted: after CUDA
+    graphs had run, a session's trace has come back without the first
+    device events it should hold (a captured frame's first kernel)."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         start_trace(TRACE_DIR)
-        for _ in range(calls):
-            fn()
+        fn()
         torch.cuda.synchronize()
-        events = device_events(stop_trace())
+        with torch.profiler.record_function("chip_smoke_counted_calls"):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(stop_trace(), after="chip_smoke_counted_calls")
         if len(events) >= calls:
             break
     else:
@@ -1992,6 +2194,7 @@ def traced_calls(fn, calls):
     return {"device_ops_per_call": len(events) / calls,
             "device_us_per_call": sum(d for _, d in events) / calls,
             "device_op_names": sorted({n[:60] for n, _ in events}), "trace_sessions": attempt,
+            "calls_made": 1 + attempt * (calls + 1),
             "our_kernels_per_call": {k: sum(sub in n for n, _ in events) // calls
                                      for k, sub in OUR_KERNELS.items()}}
 
@@ -2082,6 +2285,56 @@ FWD_SRC = "gsplat_tpu_torch/csrc/composite_fwd.cu"
 BWD_SRC = "gsplat_tpu_torch/csrc/composite_bwd.cu"
 
 
+PROJ_SRC = "gsplat_tpu_torch/csrc/projection.cu"
+PROJ_REPLACES = "none: XLA's fusion of gsplat_tpu/ops/projection.py:142 under jax.jit"
+
+
+def projection_row(backward, splats, cam, cfg, launches, **extra):
+    """project_fwd or project_bwd at a path's inputs: error against the plain
+    version, the kernel's time (a caller's, back to back, every call reading
+    300 or 520 MB at 1M: more than the L2 holds) and its device time from a
+    trace, the plain version's time, and the bytes bound (utils/sol.py)."""
+    n = splats.count
+    args = proj_args(splats, cam, cfg.sh_order, not cfg.soft_cutoff, cfg.only_sh)
+    if backward:
+        g = torch.Generator(device=DEV)
+        g.manual_seed(12)
+        cot = torch.randn((16, n), generator=g, device=DEV)
+        got, want = kproj.project_fields_bwd(*args, cot), kproj.project_fields_bwd_plain(*args, cot)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want) if a is not None)
+        equal = all(bits_equal(a, b) for a, b in zip(got, want) if a is not None)
+        rel = max(m for m, _ in field_rel_errs(got, want).values())
+        if not rel <= PROJ_BWD_TOL:
+            fail(f"project_bwd at the path's inputs: {rel:.3e} of a field's max against its plain version")
+        kernel = lambda: kproj.project_fields_bwd(*args, cot)
+        plain = lambda: kproj.project_fields_bwd_plain(*args, cot)
+    else:
+        got, want = kproj.project_fields(*args), kproj.project_fields_plain(*args)
+        err = float((got - want).abs().max())
+        equal = bits_equal(got, want)
+        if not equal:
+            fail("project_fwd at the path's inputs differs from its plain version")
+        kernel = lambda: kproj.project_fields(*args)
+        plain = lambda: kproj.project_fields_plain(*args)
+    del got, want
+    ms = cuda_time_ms(kernel, 50, warmup=3)[0]
+    plain_ms = cuda_time_ms(plain, 5, warmup=1)[0]
+    traced = traced_calls(kernel, 20)
+    nbytes = sol.projection_bytes(n, cfg.sh_order, backward, cfg.only_sh, not cfg.soft_cutoff)
+    row = {"name": "project_bwd" if backward else "project_fwd", "route": "cuda", "source": PROJ_SRC,
+           "replaces": PROJ_REPLACES, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    row.update(bytes_bounds(nbytes))
+    row.update(library_ms=None, library="none: no single PyTorch call computes the projection",
+               bound_share=row["bound_ms"] / ms, device_us_per_call=traced["device_us_per_call"],
+               device_ops_per_call=traced["device_ops_per_call"],
+               bound_share_of_device_time=row["bound_ms"] * 1e3 / traced["device_us_per_call"],
+               bit_equal_to_plain=equal, splats=n, sh_order=cfg.sh_order, tight_footprint=not cfg.soft_cutoff,
+               bytes=nbytes, bytes_per_splat=nbytes / n, **extra)
+    if traced["device_ops_per_call"] != 1:
+        fail(f"{row['name']}: one call enqueued {traced['device_ops_per_call']} device operations, not 1")
+    return row
+
+
 def phase_train_kernels(splats, cam, cfg, counts):
     """The training path's kernels at that path's own inputs."""
     n = splats.count
@@ -2159,6 +2412,7 @@ def phase_train_kernels(splats, cam, cfg, counts):
                float32_space_bound_ms=(kept * 36 + other) / DEVICE["hbm_bw_datasheet"] * 1e3,
                float32_space_bound_sectors_ms=(kept * 64 + other) / DEVICE["hbm_bw_datasheet"] * 1e3)
     rows.append(row)
+    rows.append(projection_row(True, splats, cam, cfg, counts["project_bwd"]))
     return rows
 
 
@@ -2342,6 +2596,13 @@ def phase_kernels(splats, cam, cfg, counts, graph_counts, train_counts, scene_co
                           "scene_path": scene_counts["composite_fwd"]},
         pairs_binned=int(b.tile_count.sum()),
         tiles_stopped_early=int((used < b.tile_span).sum())))
+    del args, b, used
+    rows.append(projection_row(
+        False, splats, cam, cfg,
+        counts["project_fwd"] + graph_counts["project_fwd"] + scene_counts["project_fwd"],
+        launches_by_path={"main_path": counts["project_fwd"], "main_path_graph": graph_counts["project_fwd"],
+                          "scene_path": scene_counts["project_fwd"]},
+        launches_train_path=train_counts["project_fwd"]))
     return rows
 
 
@@ -2493,7 +2754,7 @@ def rank_sharded_render(rank, world, n_splats, width, height, frames):
         ex_dropped.append(int(stats.exchange_dropped))
     counts = read_counters()
     want = expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames,
-                         composite_fwd=frames, composite_fwd_strided=frames)
+                         composite_fwd=frames, composite_fwd_strided=frames, project_fwd=frames)
     if counts != want:
         fail(f"sharded frames, rank {rank}: launch counts {counts}, expected {want}")
     if any(dropped) or any(ex_dropped):
@@ -2549,7 +2810,8 @@ def rank_sharded_render(rank, world, n_splats, width, height, frames):
     (image * weights).sum().backward()
     counts = read_counters()
     want = expect_counts(scan_i32_add=1, scan_i32_max=3, scan_i32=4, composite_fwd=1, composite_fwd_checkpoint=1,
-                         composite_fwd_strided=1, composite_bwd=1, composite_bwd_strided=1, segsum=1)
+                         composite_fwd_strided=1, composite_bwd=1, composite_bwd_strided=1, segsum=1,
+                         project_fwd=1, project_bwd=1)
     if counts != want:
         fail(f"sharded gradient, rank {rank}: launch counts {counts}, expected {want}")
     full = splat_grads(splats, cams[0], cfg0, weights, "auto")
@@ -2661,7 +2923,7 @@ def rank_sharded_train(rank, world, n_splats, width, height, steps):
     strided = steps if mesh.sp_index > 0 else 0  # sp index 0's strip is the identity mapping
     want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps, composite_fwd=steps,
                          composite_fwd_checkpoint=steps, composite_fwd_strided=strided, composite_bwd=steps,
-                         composite_bwd_strided=strided, segsum=steps)
+                         composite_bwd_strided=strided, segsum=steps, project_fwd=steps, project_bwd=steps)
     if counts != want:
         fail(f"sharded training, rank {rank}: launch counts {counts}, expected {want}")
     want_loss = sum(ref_losses) / dp

@@ -50,14 +50,14 @@ from typing import Any, Callable, Dict, Iterator, Tuple
 
 import torch
 
-from .ops.kernels import composite, probes, scan, segsum
+from .ops.kernels import composite, probes, projection, scan, segsum
 
 # device index -> the capture stream / (the memory pool every graph shares,
 # the graphs alive in it)
 _streams: Dict[int, torch.cuda.Stream] = {}
 _pools: Dict[int, Tuple[Any, weakref.WeakSet]] = {}
 
-_COUNTED = (scan, composite, segsum, probes)
+_COUNTED = (scan, composite, segsum, probes, projection)
 
 
 def _index(device) -> int:
@@ -120,7 +120,7 @@ def run_on_capture_stream(fn: Callable, *args, device=None):
 
 def counter_values() -> Dict[Tuple[Any, str, Any], int]:
     """Every launch counter of the kernel wrappers (``launches*`` of
-    ``ops/kernels/{scan,composite,segsum,probes}.py``), keyed by (module,
+    ``ops/kernels/{scan,composite,segsum,probes,projection}.py``), keyed by (module,
     name, key of a dict counter or None)."""
     out = {}
     for mod in _COUNTED:

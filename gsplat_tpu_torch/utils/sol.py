@@ -144,6 +144,33 @@ def bytes_bound(nbytes: float, device: dict = H100) -> dict:
             "measured_ms": nbytes / device["hbm_bw"] * 1e3}
 
 
+def projection_bytes(n: int, sh_order: int = 3, backward: bool = False, only_sh: bool = False,
+                     tight_footprint: bool = False) -> int:
+    """Bytes the projection kernels (``csrc/projection.cu``) must move for
+    ``n`` splats, each input read once and each output written once.  The
+    forward reads pos, orient, scale and opacity (44 B a splat), the colour
+    (12 B, not with ``only_sh``) and the SH rows ``sh_order`` reads (0, 36,
+    96 or 180 B), and writes the 64 B field column: 300 B at ``sh_order`` 3,
+    120 at 0.  The backward reads pos, orient and scale (40 B), the opacity
+    only with ``tight_footprint`` (4 B, its footprint radius), the colour and
+    the SH only when ``sh_order`` > 0 (max0's gradient needs the colour, not
+    with ``only_sh``), and the cotangent's rows that carry a gradient back
+    through the geometry (0..5, 10, 12..14) and at ``sh_order`` > 0 the
+    colour's 6..8; it writes the gradients of pos, orient and scale and, at
+    ``sh_order`` > 0, of the colour and all 45 SH rows.  The opacity's
+    gradient is cotangent row 9, and the colour's at ``sh_order`` 0 rows
+    6..8, handed back as views: no bytes.  516 B at ``sh_order`` 3 (520 with
+    ``tight_footprint``), 120 at 0."""
+    sh_read = 4 * (0, 9, 24, 45)[sh_order]
+    if not backward:
+        return n * (44 + (0 if only_sh else 12) + sh_read + 4 * FIELD_ROWS)
+    color = 12 if sh_order > 0 and not only_sh else 0
+    cot_rows = 10 + (3 if sh_order > 0 else 0)
+    reads = 40 + (4 if tight_footprint else 0) + color + sh_read + 4 * cot_rows
+    writes = 40 + color + (180 if sh_order > 0 else 0)
+    return n * (reads + writes)
+
+
 def speed_of_light(
     n_splats: int,
     width: int,

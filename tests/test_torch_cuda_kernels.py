@@ -9,6 +9,7 @@ the module is imported).  Run them on a machine with a card:
 ``python3 chip_smoke.py`` makes the same comparisons at more shapes.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -546,3 +547,49 @@ def test_forward_warp_mask_audit_and_determinism(card, case):
         walked = torch.arange(tchk.shape[1], device=card)[None, :] < ((used + cfg.chunk - 1) // cfg.chunk)[:, None]
         assert float(torch.where(walked[:, :, None], (tchk - tchk_p).abs(), 0.0).max()) < 1e-5
     assert float(img[..., 3].max()) > 0.5
+
+
+def test_projection_kernels_match_plain(card):
+    from gsplat_tpu_torch.ops.kernels import projection as kproj
+
+    g = torch.Generator(device=card).manual_seed(8)
+    splats = gt.random_splats(g, 257, extent=1.5, sh_scale=0.3, device=card)
+    fields = ("pos", "orient", "scale", "opacity", "color", "sh")
+    # in front of the camera, and with the camera in the cloud (half behind it)
+    for eye, target in (([0.2, 0.4, 3.0], [0, 0, 0]), ([0.0, 0.0, 0.0], [0, 0, -1])):
+        cam = gt.make_camera(eye, target, 96, 64, device=card)
+        for sh_order in range(4):
+            for tight in (False, True):
+                args = [getattr(splats, f) for f in fields] + [cam.view, cam.proj, cam.position, 96, 64,
+                                                               sh_order, tight, False]
+                before = (kproj.launches_fwd, kproj.launches_bwd)
+                out = kproj.project_fields(*args)
+                want = kproj.project_fields_plain(*args)
+                assert torch.equal(out.view(torch.int32), want.view(torch.int32))  # bit for bit
+                cot = torch.randn((16, 257), generator=g, device=card)
+                got = kproj.project_fields_bwd(*args, cot)
+                assert (kproj.launches_fwd, kproj.launches_bwd) == (before[0] + 1, before[1] + 1)
+                for a, b in zip(got, kproj.project_fields_bwd_plain(*args, cot)):
+                    if b is None:
+                        assert a is None
+                        continue
+                    assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    # project_splats on CUDA tensors goes through the kernels
+    before = kproj.launches_fwd
+    gt.project_splats(splats, cam)
+    assert kproj.launches_fwd == before + 1
+    # dense but transposed fields (e.g. pos given as an (N, 3) tensor's .T):
+    # the gradients equal those of contiguous fields, whatever the strides
+    weights = torch.linspace(-1.0, 1.0, 16, device=card)[:, None]
+    grads = []
+    for transposed in (False, True):
+        flip = (lambda x: x.T if x.dim() == 2 else x) if transposed else (lambda x: x)
+        leaves = {f: flip(getattr(splats, f)).clone(memory_format=torch.contiguous_format)
+                  .requires_grad_(True) for f in fields}
+        views = {f: flip(x) for f, x in leaves.items()}
+        assert transposed == (not views["pos"].is_contiguous())
+        out = gt.project_splats(dataclasses.replace(splats, **views), cam, tight_footprint=True).fields
+        (out * weights).sum().backward()
+        grads.append({f: flip(x.grad) for f, x in leaves.items()})
+    for f in fields:
+        assert torch.equal(grads[0][f], grads[1][f]), f
