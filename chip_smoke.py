@@ -48,7 +48,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
              field's max to its plain version (the analytic VJP), and both
              backwards within 2e-4 of each field's max and in the 2-norm of
              autograd through the plain forward; with NaN inputs the
-             forward NaN where the plain version is, bit-equal elsewhere).
+             forward NaN where the plain version is, bit-equal elsewhere;
+             every forward also in the serving frame's form, sanitized and
+             quantized to each payload dtype, bit-equal to its plain
+             version, and every backward also in its masked form, the
+             gradient of those fields).  The frame glue (gather_payload,
+             its float32 rows for the differentiable frame, scatter_payload,
+             mark_owners, expand_pairs) bit-equal to its plain versions in
+             every mode (packed, float32 and bf16 payloads, the depth test,
+             wireframe, soft cutoff, a strided cell at an offset, the SAT
+             cull off through GSPLAT_SAT_MAX_N's threshold, int64 and int32
+             orders, a budget
+             that drops pairs, a (tile, rank) key too wide for 31 bits, the
+             gradient map's ranks) at N = 1, 257 and 100k, at the main
+             path's 1M splats at 1080p, and on a scene half behind the
+             camera; and bin_splats through the kernels bit-equal to
+             bin_splats through the plain versions in the frame's form
+             (operands) and the order= form with the gradient map.
              Every backward call, here and in
              the kernels phase, also runs twice (bit-equal) and through its
              audit instance (no pixel with alpha != 0 in a warp the reach
@@ -60,7 +76,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              renderer; the same with the depth test against a slanted plane;
              a small wireframe against the O(N*H*W) wireframe oracle.  The
              plain side projects through project_fields_plain under autograd
-             (plain_projection), so it shares no kernel with the main path:
+             and bins through the frame glue's plain versions (plain_path),
+             so it shares no such kernel with the main path:
              no launch of project_fwd or project_bwd is counted there.
   sharded_path  4 ranks (processes started with the spawn method, one gloo
              group) sharing the one card render the main path's scene and
@@ -100,12 +117,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
              jits it) and replayed over the five cameras, each camera's
              matrices copied into the captured camera's tensors: each image
              bit-equal to the eager frame of its camera, dropped_pairs 0,
-             the counters (zeroed, read) 2 scans + 1 projection + 1
-             forward a replay, and one replay's trace holding the same
-             kernels;
+             the counters (zeroed, read) 2 scans + 1 projection (in its
+             payload form) + 1 gather_payload + 1 mark_owners + 1
+             expand_pairs + 1 forward a replay, and one replay's trace
+             holding the same kernels;
              median_graph_frame_ms beside median_frame_ms.
   stages     the main path's stages timed one by one (where a frame's time
-             goes).
+             goes), and bin_splats taken apart (prefix sum, mark_owners,
+             prefix max, expand_pairs, key sort, the rest).
   train_path the same scene and configuration under make_train_step with
              default_optimizer: steps towards a target rendered from the
              scene with perturbed colours and positions.  Launch counters
@@ -114,8 +133,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              then replays); beside it the same four lines run eagerly here
              with the same capturable optimizer from the same start: the
              losses and the parameters bit-equal, the same counts, and a
-             replay's trace holding 4 scans, 1 projection forward and 1
-             backward, 1 forward, 1 backward and 1 segment sum;
+             replay's trace holding 4 scans, 1 projection forward (payload
+             form) and 1 backward (masked), 1 gather_payload, 1
+             scatter_payload, 1 mark_owners, 1 expand_pairs, 1 forward, 1
+             backward and 1 segment sum;
              median_step_ms (captured) beside
              median_eager_step_ms.
   train_stages  one training step taken apart (where a step's time goes).
@@ -136,8 +157,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              frames rendered through include_in_render_pass / render /
              post_render, re-sorted every frame and then sorted once (a
              movement threshold above the orbit's): launch counters zeroed
-             just before and read just after (2 scans + 1 projection + 1
-             forward a frame),
+             just before and read just after (2 scans + 1 projection +
+             1 gather_payload + 1 mark_owners + 1 expand_pairs + 1 forward
+             a frame),
              the registry's deferred dropped_pairs 0, each frame bit-equal
              to render_cuda of the registry's cached rebased scene with its
              origin camera and the order it used, at most 1e-3 of the
@@ -172,11 +194,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
              sectors beside its useful-byte bound, and its time on a float32
              space); the scans' device operations a call from a profiler
              trace; the strided rows at rank 0's inputs on the sharded path;
-             the projection's forward at the main path's inputs and its
-             backward at the train path's, each with its device time from a
-             trace and its share of the bytes bound.  The scan, forward and
-             projection rows' launches are the main path's and the scene
-             path's registry frames (launches_by_path).
+             the projection's forward at the main path's inputs (in the
+             serving frame's payload form, the raw form's time beside it)
+             and its backward at the train path's, each with its device
+             time from a trace and its share of the bytes bound;
+             gather_payload, mark_owners and expand_pairs at the main
+             path's inputs, with the same, and index_select's and
+             scatter_reduce_'s times beside the gather and the marks.
+             The scan, forward, projection and glue rows' launches are the
+             main path's and the scene path's registry frames
+             (launches_by_path).
 
 --profile also traces three frames and three training steps, eager and
 replayed from their graphs, and prints each one's device_busy_share.
@@ -217,13 +244,15 @@ import gsplat_tpu_torch as gt
 from gsplat_tpu_torch import graphs
 from gsplat_tpu_torch.ops import binning
 from gsplat_tpu_torch.ops import wireframe as wire
+from gsplat_tpu_torch.ops import kernels as kernel_table
 from gsplat_tpu_torch.ops.kernels import _build
+from gsplat_tpu_torch.ops.kernels import frame_glue as kglue
 from gsplat_tpu_torch.ops.kernels import composite as kcomp
 from gsplat_tpu_torch.ops.kernels import probes as kprobes
 from gsplat_tpu_torch.ops.kernels import projection as kproj
 from gsplat_tpu_torch.ops.kernels import scan as kscan
 from gsplat_tpu_torch.ops.kernels import segsum as ksegsum
-from gsplat_tpu_torch.ops.projection import ROW_VIEWZ, project_splats
+from gsplat_tpu_torch.ops.projection import ProjectedSplats, project_splats
 from gsplat_tpu_torch.ops.rasterize_ref import quantize_payload, sanitize_projected
 from gsplat_tpu_torch.ops.rasterize_tiles import sort_by_depth
 from gsplat_tpu_torch.parallel import collectives as coll
@@ -295,20 +324,19 @@ def orbit_cameras(width, height, frames):
 
 
 def compositor_inputs(splats, cam, cfg, with_grad_map=False):
-    """The main path's own stages up to the compositor (render_cuda's); with
-    cfg.depth_test the 15-row sort and the 11-row payload (row 10 = view-z)."""
-    p = project_splats(splats, cam, cfg.sh_order, tight_footprint=not cfg.soft_cutoff, only_sh=cfg.only_sh)
-    p = sort_by_depth(quantize_payload(sanitize_projected(p), cfg), 15 if cfg.depth_test else 14)
-    b = binning.bin_splats(p, cam.width, cam.height, cfg, with_tiles=False, with_grad_map=with_grad_map)
+    """The main path's own stages up to the compositor (render_cuda's):
+    project_fwd writing sanitized, quantized fields, the depth order,
+    gather_payload (the payload the forward kernel reads: packed, or the
+    float32 rows, row 10 = view-z with cfg.depth_test) and the binning on
+    its operands, with the gradient map if asked."""
     nty, ntx = binning.tile_grid(cam.width, cam.height, cfg.tile_h, cfg.tile_w)
-    if cfg.payload_dtype == "packed":
-        payload = kcomp.pack_payload(p.fields)
-    elif cfg.depth_test:
-        payload = torch.cat([p.fields[:10], p.fields[ROW_VIEWZ:ROW_VIEWZ + 1]], dim=0).contiguous()
-    else:
-        payload = p.fields[:10].contiguous()
-    args = (payload, b.pair_splat, b.tile_base, b.tile_phi, b.tile_span, nty, ntx, cam.height, cam.width, cfg)
-    return args, b
+    fields = project_splats(splats, cam, cfg.sh_order, tight_footprint=not cfg.soft_cutoff,
+                            only_sh=cfg.only_sh, payload_dtype=cfg.payload_dtype).fields
+    glue = binning.gather_frame(fields, torch.argsort(fields[10], stable=True), cam.width, cam.height, cfg)
+    b = binning.bin_splats(None, cam.width, cam.height, cfg, with_tiles=False, with_grad_map=with_grad_map,
+                           operands=glue.operands)
+    return (glue.payload, b.pair_splat, b.tile_base, b.tile_phi, b.tile_span, nty, ntx, cam.height, cam.width,
+            cfg), b
 
 
 def occluder(width, height):
@@ -364,41 +392,13 @@ def audit_forward(args, img, used, label, bgd=None, offsets=(0, 0)):
 
 
 def zero_counters():
-    kscan.launches = 0
-    kscan.launches_by_kind.update(add=0, max=0)
-    kcomp.launches = 0
-    kcomp.launches_checkpoint = 0
-    kcomp.launches_depth = 0
-    kcomp.launches_wire = 0
-    kcomp.launches_strided = 0
-    kcomp.launches_bwd = 0
-    kcomp.launches_bwd_depth = 0
-    kcomp.launches_bwd_strided = 0
-    ksegsum.launches = 0
-    kproj.launches_fwd = 0
-    kproj.launches_bwd = 0
-    kprobes.launches.update({k: 0 for k in kprobes.launches})
+    """Every launch counter of the table (gsplat_tpu_torch/ops/kernels/__init__.py) to 0."""
+    kernel_table.zero()
 
 
 def read_counters():
-    return {
-        "scan_i32_add": kscan.launches_by_kind["add"],
-        "scan_i32_max": kscan.launches_by_kind["max"],
-        "scan_i32": kscan.launches,
-        "composite_fwd": kcomp.launches,
-        "composite_fwd_checkpoint": kcomp.launches_checkpoint,
-        "composite_fwd_depth": kcomp.launches_depth,
-        "composite_fwd_wire": kcomp.launches_wire,
-        "composite_fwd_strided": kcomp.launches_strided,
-        "composite_bwd": kcomp.launches_bwd,
-        "composite_bwd_depth": kcomp.launches_bwd_depth,
-        "composite_bwd_strided": kcomp.launches_bwd_strided,
-        "segsum": ksegsum.launches,
-        "project_fwd": kproj.launches_fwd,
-        "project_bwd": kproj.launches_bwd,
-        "alu_probe": sum(kprobes.launches[v] for v in kprobes.ALU_VARIANTS),
-        "gather_probe": sum(kprobes.launches[a] for a in kprobes.GATHER_ACCESSES),
-    }
+    """Every launch counter of the table, by name."""
+    return kernel_table.counts()
 
 
 def expect_counts(**launched):
@@ -586,28 +586,42 @@ STRIDED_CHECKS = (((2, 2), (0, 0)), ((2, 2), (1, 1)), ((1, 4), (0, 3)), ((4, 1),
 
 
 class _PlainProjectSplats:
-    """Stands in for ProjectSplats: the plain forward, differentiated by
-    autograd, in place of the two kernels."""
+    """Stands in for ProjectSplats: the plain forward (and, with a payload
+    dtype, the plain sanitize and quantize), differentiated by autograd, in
+    place of the two kernels."""
 
-    apply = staticmethod(kproj.project_fields_plain)
+    @staticmethod
+    def apply(*args):
+        *inputs, payload_dtype = args
+        raw = kproj.project_fields_plain(*inputs)
+        return raw if payload_dtype is None else kproj.payload_fields_plain(raw, payload_dtype)
 
 
 @contextlib.contextmanager
-def plain_projection():
-    """project_splats through its plain forward under autograd, for the plain
-    side of a comparison: on CUDA tensors project_splats otherwise runs
-    project_fwd and project_bwd, whatever the renderer's backend.  Fails if a
-    projection kernel launched inside."""
+def plain_path():
+    """project_splats through its plain forward under autograd, and the
+    frame glue (gather_payload, scatter_payload, mark_owners, expand_pairs)
+    through their plain versions, for the plain side of a comparison: on
+    CUDA tensors project_splats and the binning otherwise run project_fwd,
+    project_bwd and the glue kernels, whatever the renderer's backend.
+    Fails if one of those kernels launched inside."""
     from gsplat_tpu_torch.ops import projection as proj_mod
 
-    before = (kproj.launches_fwd, kproj.launches_bwd)
-    saved, proj_mod.ProjectSplats = proj_mod.ProjectSplats, _PlainProjectSplats
+    glue = ("gather_payload", "scatter_payload", "mark_owners", "expand_pairs")
+    watched = ("project_fwd", "project_bwd") + glue
+    before = {k: read_counters()[k] for k in watched}
+    saved = (proj_mod.ProjectSplats,) + tuple(getattr(kglue, k) for k in glue)
+    proj_mod.ProjectSplats = _PlainProjectSplats
+    for k in glue:
+        setattr(kglue, k, getattr(kglue, f"{k}_plain"))
     try:
         yield
     finally:
-        proj_mod.ProjectSplats = saved
-    if (kproj.launches_fwd, kproj.launches_bwd) != before:
-        fail("a projection kernel launched on the plain side of a comparison")
+        proj_mod.ProjectSplats = saved[0]
+        for k, fn in zip(glue, saved[1:]):
+            setattr(kglue, k, fn)
+    if {k: read_counters()[k] for k in watched} != before:
+        fail("a projection or frame-glue kernel launched on the plain side of a comparison")
 
 
 def splat_grads(splats, cam, cfg, weights, backend, bgd=None):
@@ -656,6 +670,8 @@ def phase_build(verbose):
     kcomp._library()
     kcomp._library_bwd()
     ksegsum._library()
+    kproj._library()
+    kglue._library()
     emit("build", seconds=round(time.time() - t0, 2), directory=str(out),
          sources=sorted(f"gsplat_tpu_torch/csrc/{n}.cu" for n in _build.EXTRA_FLAGS))
 
@@ -898,6 +914,7 @@ def check_scan_capture(g):
 # field's max |g| and in the 2-norm (autograd sums in another order, and the
 # VJP is not additive at an axis-aligned eigenvector, ROADMAP.md queue 3).
 PROJ_BWD_TOL = 1e-6
+PAYLOAD_DTYPES = ("float32", "packed", "bfloat16")
 PROJ_SIZES = (1, 255, 257, 1_000_000)
 PROJ_MODES = tuple((sh, tight, only) for sh in range(4) for tight in (False, True) for only in (False, True))
 
@@ -941,8 +958,15 @@ def check_projection():
     origin), with an explicit camera position, a black splat with zero SH
     (max0's tie) and an axis-aligned splat (ay, bx exactly -0.0); then NaN
     inputs (the forward's NaN where the plain version's, bit-equal
-    elsewhere)."""
-    res = {"forward_cases": 0, "forward": "bit-equal", "backward_cases": 0, "backward_bit_equal_cases": 0,
+    elsewhere); each forward also in the frame's form, sanitized and
+    quantized to every payload dtype (bit-equal to payload_fields_plain of
+    the plain forward), and each backward also in its masked form, the
+    gradient of that form, on a row-major and a splat-major cotangent
+    (bit-equal to the unmasked form of the cotangent zeroed in the invalid
+    columns)."""
+    res = {"forward_cases": 0, "forward": "bit-equal", "payload_cases": 0, "backward_cases": 0,
+           "masked_backward_cases": 0, "masked_backward": "bit-equal to the unmasked form of the masked cotangent",
+           "backward_bit_equal_cases": 0,
            "backward_worst_rel_err_vs_plain": 0.0, "vs_autograd_worst_max_rel": 0.0,
            "vs_autograd_worst_2norm_rel": 0.0, "backward_tolerance_vs_plain": PROJ_BWD_TOL,
            "tolerance_vs_autograd": GRAD_TOL}
@@ -968,9 +992,16 @@ def check_projection():
                 args = proj_args(scene, cam, sh_order, tight, only_sh)
                 out = kproj.project_fields(*args)
                 torch.cuda.synchronize()
-                if not bits_equal(out, kproj.project_fields_plain(*args)):
+                plain_raw = kproj.project_fields_plain(*args)
+                if not bits_equal(out, plain_raw):
                     fail(f"{label}: project_fwd differs from its plain version")
                 res["forward_cases"] += 1
+                # the serving frame's form: sanitized and quantized in the same launch
+                for payload in PAYLOAD_DTYPES:
+                    got = kproj.project_fields(*args, payload_dtype=payload)
+                    if not bits_equal(got, kproj.payload_fields_plain(plain_raw, payload)):
+                        fail(f"{label}: project_fwd with payload_dtype={payload} differs from its plain version")
+                    res["payload_cases"] += 1
                 cot = torch.randn((16, n), generator=g, device=DEV)
                 got = kproj.project_fields_bwd(*args, cot)
                 torch.cuda.synchronize()
@@ -982,6 +1013,18 @@ def check_projection():
                 if not worst <= PROJ_BWD_TOL or not all(torch.isfinite(a).all() for a in got if a is not None):
                     fail(f"{label}: project_bwd against its plain version {e_plain} (tolerance {PROJ_BWD_TOL})")
                 res["backward_worst_rel_err_vs_plain"] = max(res["backward_worst_rel_err_vs_plain"], worst)
+                # the masked form (the gradient of the payload form's fields):
+                # the unmasked form of the cotangent zeroed in invalid columns
+                want_m = kproj.project_fields_bwd(*args, torch.where(plain_raw[11] > 0.5, cot, 0.0))
+                # the cotangent row-major and splat-major (as scatter_payload writes it)
+                for c in (cot, cot.T.contiguous().T):
+                    got_m = kproj.project_fields_bwd(*args, c, masked=True)
+                    if not all((a is None and b is None) or bits_equal(a.contiguous(), b.contiguous())
+                               for a, b in zip(got_m, want_m)):
+                        fail(f"{label}: project_bwd's masked form (cotangent strides {c.stride()}) differs from "
+                             "its unmasked form of the masked cotangent")
+                    res["masked_backward_cases"] += 1
+                del got_m, want_m
                 leaves = [a.clone().requires_grad_(True) for a in args[:6]]
                 with torch.enable_grad():
                     f = kproj.project_fields_plain(*leaves, *args[6:])
@@ -1007,14 +1050,153 @@ def check_projection():
     nan_cases = 0
     for sh_order, tight, only_sh in PROJ_MODES:
         args = proj_args(scene, front, sh_order, tight, only_sh)
-        out, want = kproj.project_fields(*args), kproj.project_fields_plain(*args)
-        nan_w = torch.isnan(want)
-        if not torch.equal(torch.isnan(out), nan_w) or not bits_equal(out[~nan_w], want[~nan_w]):
-            fail(f"projection with NaN inputs sh={sh_order} tight={tight} only_sh={only_sh}: the forward's NaN "
-                 "entries or its other entries differ from the plain version's")
-        nan_cases += 1
+        raw = kproj.project_fields_plain(*args)
+        for payload in (None,) + PAYLOAD_DTYPES:
+            out = kproj.project_fields(*args, payload_dtype=payload)
+            want = raw if payload is None else kproj.payload_fields_plain(raw, payload)
+            nan_w = torch.isnan(want)
+            if not torch.equal(torch.isnan(out), nan_w) or not bits_equal(out[~nan_w], want[~nan_w]):
+                fail(f"projection with NaN inputs sh={sh_order} tight={tight} only_sh={only_sh} "
+                     f"payload_dtype={payload}: the forward's NaN entries or its other entries differ from the "
+                     "plain version's")
+            nan_cases += 1
     res["nan_input_cases"] = nan_cases
     res["nan_inputs"] = "NaN where the plain version has NaN, bit-equal elsewhere"
+    return res
+
+
+# The frame glue's modes: (name, RenderConfig fields, tile offsets).  "no_sat"
+# lowers GSPLAT_SAT_MAX_N's threshold below the scene (the cull off).
+GLUE_MODES = (
+    ("packed", dict(payload_dtype="packed"), (0, 0)),
+    ("float32", dict(), (0, 0)),
+    ("bfloat16", dict(payload_dtype="bfloat16"), (0, 0)),
+    ("depth_test", dict(depth_test=True), (0, 0)),
+    ("wireframe", dict(wireframe=True), (0, 0)),
+    ("soft_cutoff", dict(soft_cutoff=True), (0, 0)),
+    ("strided", dict(row_stride=2, col_stride=3), (1, 2)),
+    ("no_sat", dict(), (0, 0)),
+)
+GLUE_SIZES = ((1, 70, 45), (257, 70, 45), (100_000, 640, 360))
+BIN_ARRAYS = ("pair_splat", "pair_tile", "tile_start", "tile_count", "tile_base", "tile_phi", "tile_span",
+              "grad_base", "dropped_pairs", "dest_of_exp", "exp_offsets", "exp_counts", "exp_rank")
+
+
+@contextlib.contextmanager
+def sat_max_n(value):
+    """binning's GSPLAT_SAT_MAX_N threshold set to `value` inside."""
+    saved, binning._SAT_CULL_MAX_N = binning._SAT_CULL_MAX_N, value
+    try:
+        yield
+    finally:
+        binning._SAT_CULL_MAX_N = saved
+
+
+def same_words(a, b):
+    """Both None, or equal 32-bit words of one shape."""
+    if a is None or b is None:
+        return a is None and b is None
+    return a.dtype == b.dtype and bits_equal(a.contiguous(), b.contiguous())
+
+
+def check_glue_case(splats, cam, cfg, offsets, label, res):
+    """gather_payload (also its float32 rows for the differentiable frame),
+    scatter_payload, mark_owners and expand_pairs against their plain
+    versions, bit for bit, on one scene, camera and mode; then bin_splats
+    through the kernels against bin_splats through the plain versions
+    (plain_path), in the frame's form (operands) and in the order= form with
+    the gradient map."""
+    n, w, h = splats.count, cam.width, cam.height
+    if cfg.wireframe:
+        fields = wire._wireframe_projected(splats, cam, LINE_PX).fields
+    else:
+        fields = kproj.project_fields(*proj_args(splats, cam, cfg.sh_order, not cfg.soft_cutoff, cfg.only_sh),
+                                      payload_dtype=cfg.payload_dtype)
+    order = torch.argsort(fields[10], stable=True)
+    sat_cull, rho_ok = binning.sat_flags(n, w, h, cfg)
+    # the frame's payload with an int64 and an int32 order, and the float32
+    # rows of the differentiable frame
+    for od, float_rows in ((order, False), (order.to(torch.int32), False), (order, True)):
+        want = kglue.gather_payload_plain(fields, order, w, h, cfg, rho_ok, *offsets, float_rows=float_rows)
+        got = kglue.gather_payload(fields, od, w, h, cfg, rho_ok, *offsets, float_rows=float_rows)
+        form = f"{od.dtype}, float_rows={float_rows}"
+        for name in ("counts", "nx", "tile0", "thr_q"):
+            if not same_words(getattr(got.operands, name), getattr(want.operands, name)):
+                fail(f"gather_payload {label} ({form}): {name} differs from its plain version")
+        if not same_words(got.payload, want.payload):
+            fail(f"gather_payload {label} ({form}): the payload differs from its plain version")
+        res["gather_cases"] += 1
+    # the gather's gradient, for the float32 rows it wrote
+    g = torch.Generator(device=DEV)
+    g.manual_seed(n)
+    d_payload = torch.randn(tuple(got.payload.shape), generator=g, device=DEV)
+    if not same_words(kglue.scatter_payload(d_payload, order), kglue.scatter_payload_plain(d_payload, order)):
+        fail(f"scatter_payload {label}: differs from its plain version")
+    res["scatter_cases"] += 1
+    del d_payload, got, want
+    ops = kglue.gather_payload(fields, order, w, h, cfg, rho_ok, *offsets).operands
+    nty, ntx = binning.tile_grid(w, h, cfg.tile_h, cfg.tile_w)
+    cum = kscan.scan_i32(ops.counts, "add")
+    total = int(cum[-1])
+    for budget in (cfg.pair_budget(n), max(1, total // 2)):  # the second drops pairs
+        offs, marks = kglue.mark_owners(cum, ops.counts, budget)
+        want_offs, want_marks = kglue.mark_owners_plain(cum, ops.counts, budget)
+        if not same_words(offs, want_offs) or not same_words(marks, want_marks):
+            fail(f"mark_owners {label} budget={budget}: differs from its plain version")
+        res["marks_cases"] += 1
+        smax = kscan.scan_i32(marks[:budget], "max")
+        # the frame's tile count, and one whose (tile, rank) key does not fit 31 bits
+        for num_tiles in (nty * ntx, 1 << 28):
+            for with_rank in (False, True):
+                a = kglue.expand_pairs(smax, cum, offs, ops, budget, num_tiles, ntx, cfg, *offsets, sat_cull,
+                                       rho_ok, with_rank)
+                b = kglue.expand_pairs_plain(smax, cum, offs, ops, budget, num_tiles, ntx, cfg, *offsets,
+                                             sat_cull, rho_ok, with_rank)
+                for name in ("key", "tile", "rank", "exp_rank"):
+                    if not same_words(getattr(a, name), getattr(b, name)):
+                        fail(f"expand_pairs {label} budget={budget} tiles={num_tiles}: {name} differs from its "
+                             "plain version")
+                res["expand_cases"] += 1
+                res["key_split_cases"] += int(a.key is None)
+                tile = a.tile if a.key is None else a.key >> kglue.rank_bits(n)
+                real = torch.arange(budget, device=DEV) < min(total, budget)
+                res["sat_culled_pairs"] += int(((tile == num_tiles) & real).sum())
+    forms = (("operands", lambda: binning.bin_splats(None, w, h, cfg, row_offset=offsets[0], col_offset=offsets[1],
+                                                      operands=ops)),
+             ("order", lambda: binning.bin_splats(ProjectedSplats(fields=fields), w, h, cfg,
+                                                   row_offset=offsets[0], col_offset=offsets[1], order=order,
+                                                   with_grad_map=True)))
+    for form, fn in forms:
+        got_b = fn()
+        with plain_path():
+            want_b = fn()
+        for name in BIN_ARRAYS:
+            if not same_words(getattr(got_b, name), getattr(want_b, name)):
+                fail(f"bin_splats {label} ({form} form): {name} through the kernels differs from the plain versions")
+        res["bin_splats_cases"] += 1
+
+
+def check_frame_glue():
+    """The frame glue's four kernels against their plain versions, bit for
+    bit, in every mode of GLUE_MODES at GLUE_SIZES, and at the main path's
+    1M splats at 1080p (packed)."""
+    res = {"gather_cases": 0, "scatter_cases": 0, "marks_cases": 0, "expand_cases": 0, "key_split_cases": 0, "bin_splats_cases": 0,
+           "sat_culled_pairs": 0, "equal": "bit-equal"}
+    for n, w, h in GLUE_SIZES:
+        scene = bench_scene(n, seed=30 + n % 11)
+        cam = gt.make_camera(eye=[0.0, 0.4, 3.0], target=[0, 0, 0], width=w, height=h, device=DEV)
+        for name, kw, offsets in GLUE_MODES:
+            cfg = gt.RenderConfig(warn_on_drop=False, pairs_per_splat=8.0, **kw)
+            with sat_max_n(0 if name == "no_sat" else binning._SAT_CULL_MAX_N):
+                check_glue_case(scene, cam, cfg, offsets, f"{name} n={n} {w}x{h}", res)
+    # the main path's size and settings, and a scene half behind the camera
+    main = bench_scene(1_000_000, seed=0)
+    cfg = gt.RenderConfig(payload_dtype="packed", transmittance_eps=1e-3, warn_on_drop=False)
+    check_glue_case(main, orbit_cameras(1920, 1080, 1)[0], cfg, (0, 0), "main path 1M 1920x1080", res)
+    behind = gt.make_camera(eye=[0.0, 0.0, 0.0], target=[0, 0, -1], width=640, height=360, device=DEV)
+    check_glue_case(bench_scene(100_000, seed=31), behind, cfg, (0, 0), "half behind 640x360", res)
+    if res["sat_culled_pairs"] <= 0:
+        fail("frame glue checks: the exact-coverage cull removed no pair in any case")
     return res
 
 
@@ -1185,6 +1367,7 @@ def phase_checks():
     bwd["bwd_worst_rel_err"] = max(bwd["bwd_worst_rel_err"], strided_bwd)
     probe = check_probes()
     projection = check_projection()
+    frame_glue = check_frame_glue()
     emit("checks", scan_cases=scan_cases, scan="bit-equal", scan_stress_calls=stress_calls,
          scan_stress="bit-equal, scratch poisoned every 25 calls", scan_growth_over_next_epoch_tags=scan_growth,
          scan_capture=scan_capture,
@@ -1198,7 +1381,7 @@ def phase_checks():
          checkpoint_max_abs_err=bwd["checkpoint_max_abs_err"],
          composite_bwd_worst_row_rel_err=bwd["bwd_worst_rel_err"], composite_bwd_row_tolerance=GRAD_ROW_TOL,
          segsum_worst_row_rel_err=bwd["segsum_worst_rel_err"], segsum_row_tolerance=SEGSUM_TOL,
-         segsum_two_runs="bit-equal", projection=projection)
+         segsum_two_runs="bit-equal", projection=projection, frame_glue=frame_glue)
 
 
 def phase_reference():
@@ -1211,7 +1394,7 @@ def phase_reference():
     for payload in ("float32", "packed"):
         cfg = gt.RenderConfig(tile_capacity=1024, transmittance_eps=0.0, payload_dtype=payload)
         main = gt.render(splats, cam, cfg, backend="auto")
-        with plain_projection():
+        with plain_path():
             tiles = gt.render(splats, cam, cfg, backend="tiles")
             oracle = gt.render(splats, cam, cfg, backend="reference")
         e_tiles = float((main - tiles).abs().max())
@@ -1231,7 +1414,7 @@ def phase_reference():
     for payload in ("float32", "packed"):
         cfg = gt.RenderConfig(tile_capacity=1024, transmittance_eps=0.0, payload_dtype=payload)
         g_main = splat_grads(splats, cam, cfg, weights, "auto")
-        with plain_projection():
+        with plain_path():
             g_tiles = splat_grads(splats, cam, cfg, weights, "tiles")
         grad_err[payload] = {}
         for f in SPLAT_FIELDS:
@@ -1249,7 +1432,7 @@ def phase_reference():
     bgd, bg_rgba = occluder(200, 120)
     cfg = gt.RenderConfig(tile_capacity=1024, transmittance_eps=0.0)
     main = gt.render(splats, cam, cfg, backend="auto", background_rgba=bg_rgba, background_depth=bgd)
-    with plain_projection():
+    with plain_path():
         tiles = gt.render(splats, cam, cfg, backend="tiles", background_rgba=bg_rgba, background_depth=bgd)
         oracle = gt.render(splats, cam, cfg, backend="reference", background_rgba=bg_rgba, background_depth=bgd)
     untested = gt.render(splats, cam, cfg, backend="auto", background_rgba=bg_rgba)
@@ -1262,7 +1445,7 @@ def phase_reference():
         fail("reference depth test: the plane killed nothing")
     out["depth_test"] = {"vs_tiles": e_tiles, "vs_oracle": e_oracle, "vs_untested": killed}
     g_main = splat_grads(splats, cam, cfg, weights, "auto", bgd=bgd)
-    with plain_projection():
+    with plain_path():
         g_tiles = splat_grads(splats, cam, cfg, weights, "tiles", bgd=bgd)
     grad_err["depth_test"] = {}
     for f in SPLAT_FIELDS:
@@ -1278,7 +1461,7 @@ def phase_reference():
     # alike.  So: equal but on at most WIRE_EDGE_SHARE of the pixels.
     wcfg = dataclasses.replace(cfg, pairs_per_splat=12.0)
     w_main = gt.render_wireframe(splats, cam, wcfg, line_px=LINE_PX, background=[0.2, 0.3, 0.4])
-    with plain_projection():
+    with plain_path():
         w_oracle = gt.render_wireframe(splats, cam, wcfg, line_px=LINE_PX, background=[0.2, 0.3, 0.4],
                                        backend="reference")
     differ = (w_main - w_oracle).abs().amax(dim=-1) > IMAGE_TOL
@@ -1323,7 +1506,8 @@ def phase_main_path(n_splats, width, height, frames):
 
     # serving pays for no training: no checkpoints, no backward, no gradient map
     want = expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames, composite_fwd=frames,
-                         project_fwd=frames)
+                         project_fwd=frames, project_fwd_payload=frames, gather_payload=frames,
+                         expand_pairs=frames, mark_owners=frames)
     if counts != want:
         fail(f"main path launch counts {counts}, expected {want}")
     if any(dropped):
@@ -1424,41 +1608,80 @@ def phase_frame_digest(n_splats, width, height):
 
 
 def phase_stages(splats, cam, cfg, reps=7):
-    """Where a frame's time goes: the stages of render_cuda, each between two
-    CUDA events with a synchronise before it (so the sum exceeds the frame
-    time, which overlaps host and device work)."""
+    """Where a frame's time goes: the stages of render_cuda's serving frame,
+    each between two CUDA events with a synchronise before it (so the sum
+    exceeds the frame time, which overlaps host and device work).  The
+    binning's stages: its prefix sum, the marks' scatter, its prefix max,
+    expand_pairs, the key sort and the descriptors after it."""
     nty, ntx = binning.tile_grid(cam.width, cam.height, cfg.tile_h, cfg.tile_w)
     state = {}
 
-    def project():
-        state["p"] = project_splats(splats, cam, cfg.sh_order, tight_footprint=not cfg.soft_cutoff,
-                                    only_sh=cfg.only_sh)
-
-    def sanitize_quantize():
-        state["p"] = quantize_payload(sanitize_projected(state["p"]), cfg)
+    def project():  # project_fwd, writing sanitized, quantized fields
+        state["f"] = project_splats(splats, cam, cfg.sh_order, tight_footprint=not cfg.soft_cutoff,
+                                    only_sh=cfg.only_sh, payload_dtype=cfg.payload_dtype).fields
 
     def depth_sort():
-        state["p"] = sort_by_depth(state["p"])
+        state["order"] = torch.argsort(state["f"][10], stable=True)
+
+    def gather():
+        state["glue"] = binning.gather_frame(state["f"], state["order"], cam.width, cam.height, cfg)
 
     def bin_pairs():
-        state["b"] = binning.bin_splats(state["p"], cam.width, cam.height, cfg, with_tiles=False)
-
-    def pack():
-        state["payload"] = kcomp.pack_payload(state["p"].fields)
+        state["b"] = binning.bin_splats(None, cam.width, cam.height, cfg, with_tiles=False,
+                                        operands=state["glue"].operands)
 
     def composite():
         b = state["b"]
-        kcomp.composite_splats(state["payload"], b.pair_splat, b.tile_base, b.tile_phi, b.tile_span,
+        kcomp.composite_splats(state["glue"].payload, b.pair_splat, b.tile_base, b.tile_phi, b.tile_span,
                                nty, ntx, cam.height, cam.width, cfg)
 
-    stages = [("project", project), ("sanitize_quantize", sanitize_quantize), ("depth_sort", depth_sort),
-              ("bin_splats", bin_pairs), ("pack_payload", pack), ("composite_fwd", composite)]
+    stages = [("project", project), ("depth_sort", depth_sort), ("gather_payload", gather),
+              ("bin_splats", bin_pairs), ("composite_fwd", composite)]
     samples = {name: [] for name, _ in stages}
     for _ in range(reps):
         for name, fn in stages:
             samples[name].append(cuda_time_ms(fn)[0])
     med = {name: statistics.median(v) for name, v in samples.items()}
-    emit("stages", reps=reps, median_ms=med, sum_ms=sum(med.values()))
+    bins = binning_stages(splats.count, cam, cfg, state["glue"].operands, reps)
+    emit("stages", reps=reps, median_ms=med, sum_ms=sum(med.values()), bin_splats_stages_ms=bins)
+
+
+def binning_stages(n, cam, cfg, ops, reps):
+    """bin_splats taken apart on the frame's operands (each stage's median
+    ms, as phase_stages times them)."""
+    nty, ntx = binning.tile_grid(cam.width, cam.height, cfg.tile_h, cfg.tile_w)
+    budget = cfg.pair_budget(n)
+    sat_cull, rho_ok = binning.sat_flags(n, cam.width, cam.height, cfg)
+    st = {}
+
+    def prefix_sum():
+        st["cum"] = kscan.scan_i32(ops.counts, "add")
+
+    def marks():
+        st["offsets"], st["marks"] = kglue.mark_owners(st["cum"], ops.counts, budget)
+
+    def prefix_max():
+        st["smax"] = kscan.scan_i32(st["marks"][:budget], "max")
+
+    def expand():
+        st["pk"] = kglue.expand_pairs(st["smax"], st["cum"], st["offsets"], ops, budget, nty * ntx, ntx, cfg, 0,
+                                      0, sat_cull, rho_ok, False)
+
+    def sort():
+        st["sorted"] = torch.sort(st["pk"].key).values
+
+    def whole():
+        binning.bin_splats(None, cam.width, cam.height, cfg, with_tiles=False, operands=ops)
+
+    stages = [("prefix_sum", prefix_sum), ("marks", marks), ("prefix_max", prefix_max),
+              ("expand_pairs", expand), ("key_sort", sort), ("bin_splats", whole)]
+    samples = {name: [] for name, _ in stages}
+    for _ in range(reps):
+        for name, fn in stages:
+            samples[name].append(cuda_time_ms(fn)[0])
+    med = {name: statistics.median(v) for name, v in samples.items()}
+    med["descriptors_and_rest"] = med["bin_splats"] - sum(v for k, v in med.items() if k != "bin_splats")
+    return med
 
 
 def perturbed_target(splats, cam, cfg, seed=21):
@@ -1526,7 +1749,9 @@ def phase_train_path(splats, cam, cfg, steps):
 
     want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps,
                          composite_fwd=steps, composite_fwd_checkpoint=steps,
-                         composite_bwd=steps, segsum=steps, project_fwd=steps, project_bwd=steps)
+                         composite_bwd=steps, segsum=steps, project_fwd=steps, project_fwd_payload=steps,
+                         project_bwd=steps, gather_payload=steps, scatter_payload=steps, expand_pairs=steps,
+                         mark_owners=steps)
     if counts != want:
         fail(f"train path launch counts {counts}, expected {want}")
     if not all(math.isfinite(x) for x in warm + losses):
@@ -1595,19 +1820,24 @@ def phase_train_stages(splats, cam, cfg, target, reps=3):
     optimizer = gt.default_optimizer(params)
     st = {}
 
-    def project():
+    def project():  # project_fwd, writing sanitized, quantized fields
         st["s"] = gt.splats_from_params(params)
-        st["p0"] = project_splats(st["s"], cam, cfg.sh_order, tight_footprint=not cfg.soft_cutoff,
-                                  only_sh=cfg.only_sh)
+        st["fields"] = project_splats(st["s"], cam, cfg.sh_order, tight_footprint=not cfg.soft_cutoff,
+                                      only_sh=cfg.only_sh, payload_dtype=cfg.payload_dtype).fields
 
-    def sanitize_quantize_sort():
-        st["p"] = sort_by_depth(quantize_payload(sanitize_projected(st["p0"]), cfg))
+    def depth_sort():
+        st["order"] = torch.argsort(st["fields"][10].detach(), stable=True)
+
+    def gather():  # the float32 rows and the binning operands, differentiable
+        st["glue"] = binning.gather_frame(st["fields"], st["order"], cam.width, cam.height, cfg,
+                                          differentiable=True)
 
     def bin_with_grad_map():
-        st["b"] = binning.bin_splats(st["p"], cam.width, cam.height, cfg, with_tiles=False, with_grad_map=True)
+        st["b"] = binning.bin_splats(None, cam.width, cam.height, cfg, with_tiles=False, with_grad_map=True,
+                                     operands=st["glue"].operands)
 
     def composite_forward():
-        st["f"] = st["p"].fields[:10].detach().requires_grad_(True)
+        st["f"] = st["glue"].payload.detach().requires_grad_(True)
         st["img"] = kcomp.composite_splats_diff(st["f"], st["b"], nty, ntx, cam.height, cam.width, cfg)
 
     def loss_forward():
@@ -1621,14 +1851,14 @@ def phase_train_stages(splats, cam, cfg, target, reps=3):
     def composite_backward():  # backward kernel + segment sum + per-splat combine
         st["img"].backward(st["img_leaf"].grad)
 
-    def projection_backward():  # depth-sort permutation, quantize, sanitize, projection, activations
+    def projection_backward():  # scatter_payload, project_bwd (masked), activations
         optimizer.zero_grad(set_to_none=True)
-        st["p"].fields[:10].backward(st["f"].grad)
+        st["glue"].payload.backward(st["f"].grad)
 
     def optimizer_step():
         optimizer.step()
 
-    stages = [("project", project), ("sanitize_quantize_sort", sanitize_quantize_sort),
+    stages = [("project", project), ("depth_sort", depth_sort), ("gather_payload", gather),
               ("bin_splats_grad_map", bin_with_grad_map), ("composite_fwd_checkpoint", composite_forward),
               ("loss_forward", loss_forward), ("loss_backward", loss_backward),
               ("composite_backward_total", composite_backward), ("projection_backward", projection_backward),
@@ -1642,6 +1872,7 @@ def phase_train_stages(splats, cam, cfg, target, reps=3):
     med = {name: statistics.median(v) for name, v in samples.items()}
     emit("train_stages", reps=reps, median_ms=med, sum_ms=sum(med.values()),
          note="composite_backward_total = backward kernel + segment sum + per-splat combine; "
+              "projection_backward = scatter_payload + project_bwd (masked) + the activations' backward; "
               "their own times are on the kernels line")
 
 
@@ -1683,7 +1914,8 @@ def phase_host_scene(splats, cams, frames, main_cfg):
         images.append(image)
     counts = read_counters()
     want = expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames,
-                         composite_fwd=frames, composite_fwd_depth=frames, project_fwd=frames)
+                         composite_fwd=frames, composite_fwd_depth=frames, project_fwd=frames,
+                         project_fwd_payload=frames, gather_payload=frames, expand_pairs=frames, mark_owners=frames)
     if counts != want:
         fail(f"host-scene frames: launch counts {counts}, expected {want}")
     if any(dropped):
@@ -1718,7 +1950,8 @@ def phase_host_scene(splats, cams, frames, main_cfg):
     counts = read_counters()
     want = expect_counts(scan_i32_add=1, scan_i32_max=3, scan_i32=4, composite_fwd=1,
                          composite_fwd_checkpoint=1, composite_fwd_depth=1, composite_bwd=1,
-                         composite_bwd_depth=1, segsum=1, project_fwd=1, project_bwd=1)
+                         composite_bwd_depth=1, segsum=1, project_fwd=1, project_fwd_payload=1, project_bwd=1,
+                         gather_payload=1, scatter_payload=1, expand_pairs=1, mark_owners=1)
     if counts != want:
         fail(f"host-scene gradient: launch counts {counts}, expected {want}")
     grad_max = {}
@@ -1755,10 +1988,10 @@ def phase_host_scene(splats, cams, frames, main_cfg):
     wire_imgs = [gt.render_wireframe(splats, c, wcfg, line_px=LINE_PX) for c in cams[:3]]
     over_imgs = [gt.render_wire_over(splats, c, wcfg, line_px=LINE_PX) for c in cams[:3]]
     if counts_w != expect_counts(scan_i32_add=3, scan_i32_max=3, scan_i32=6, composite_fwd=3, composite_fwd_wire=3,
-                                 project_fwd=3):
+                                 project_fwd=3, project_fwd_payload=3, gather_payload=3, expand_pairs=3, mark_owners=3):
         fail(f"wireframe frames: launch counts {counts_w}")
     if counts_o != expect_counts(scan_i32_add=6, scan_i32_max=6, scan_i32=12, composite_fwd=6, composite_fwd_wire=3,
-                                 project_fwd=6):
+                                 project_fwd=6, project_fwd_payload=6, gather_payload=6, expand_pairs=6, mark_owners=6):
         fail(f"wire-over frames: launch counts {counts_o}")
     args, b = wire._wireframe_inputs(splats, cam, wcfg, LINE_PX)
     if int(b.dropped_pairs) != 0:
@@ -1872,7 +2105,8 @@ def registry_run(reg, ids, cams, label):
         images.append(image)
     counts = read_counters()
     n = len(cams)
-    want = expect_counts(scan_i32_add=n, scan_i32_max=n, scan_i32=2 * n, composite_fwd=n, project_fwd=n)
+    want = expect_counts(scan_i32_add=n, scan_i32_max=n, scan_i32=2 * n, composite_fwd=n, project_fwd=n,
+                         project_fwd_payload=n, gather_payload=n, expand_pairs=n, mark_owners=n)
     if counts != want:
         fail(f"scene_path {label}: launch counts {counts}, expected {want}")
     dropped = [int(s.dropped_pairs) for s in stats]
@@ -2084,7 +2318,8 @@ def phase_ply_fit(tmp, steps=120):
     end = view0_psnr()
     want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps, composite_fwd=steps,
                          composite_fwd_checkpoint=steps, composite_bwd=steps, segsum=steps,
-                         project_fwd=steps, project_bwd=steps)
+                         project_fwd=steps, project_fwd_payload=steps, project_bwd=steps, gather_payload=steps,
+                         scatter_payload=steps, expand_pairs=steps, mark_owners=steps)
     if counts != want:
         fail(f"ply fit: launch counts {counts}, expected {want}")
     if not (math.isfinite(end) and end > start + 3.0 and end > 26.0):
@@ -2157,10 +2392,8 @@ def device_events(path, after=None):
 
 
 # The port's production kernels by counter name, and what their device
-# events' names hold.
-OUR_KERNELS = {"scan_i32": "scan_kernel", "composite_fwd": "composite_fwd_kernel",
-               "composite_bwd": "composite_bwd_kernel", "segsum": "segsum_kernel",
-               "project_fwd": "project_fwd_kernel", "project_bwd": "project_bwd_kernel"}
+# events' names hold (the counter table's kernels).
+OUR_KERNELS = {name: c.kernel for name, c in kernel_table.counters().items() if c.kernel}
 
 # Traces a traced_calls may take: a session whose trace comes back with
 # fewer device events than calls (every traced call enqueues at least one;
@@ -2289,38 +2522,53 @@ PROJ_SRC = "gsplat_tpu_torch/csrc/projection.cu"
 PROJ_REPLACES = "none: XLA's fusion of gsplat_tpu/ops/projection.py:142 under jax.jit"
 
 
-def projection_row(backward, splats, cam, cfg, launches, **extra):
+def projection_row(backward, splats, cam, cfg, launches, payload_dtype=None, masked=False, **extra):
     """project_fwd or project_bwd at a path's inputs: error against the plain
     version, the kernel's time (a caller's, back to back, every call reading
     300 or 520 MB at 1M: more than the L2 holds) and its device time from a
-    trace, the plain version's time, and the bytes bound (utils/sol.py)."""
+    trace, the plain version's time, and the bytes bound (utils/sol.py).
+    ``payload_dtype``: the forward in the frame's form, sanitized and
+    quantized (its time without that beside it); ``masked``: the backward of
+    that form (an invalid splat's cotangent zeroed), on a splat-major
+    cotangent as the training path gives it."""
     n = splats.count
     args = proj_args(splats, cam, cfg.sh_order, not cfg.soft_cutoff, cfg.only_sh)
     if backward:
         g = torch.Generator(device=DEV)
         g.manual_seed(12)
         cot = torch.randn((16, n), generator=g, device=DEV)
-        got, want = kproj.project_fields_bwd(*args, cot), kproj.project_fields_bwd_plain(*args, cot)
+        if masked:  # splat-major, as the path's scatter_payload writes it
+            cot = cot.T.contiguous().T
+        got = kproj.project_fields_bwd(*args, cot, masked=masked)
+        want = kproj.project_fields_bwd_plain(*args, cot, masked=masked)
         err = max(float((a - b).abs().max()) for a, b in zip(got, want) if a is not None)
         equal = all(bits_equal(a, b) for a, b in zip(got, want) if a is not None)
         rel = max(m for m, _ in field_rel_errs(got, want).values())
         if not rel <= PROJ_BWD_TOL:
             fail(f"project_bwd at the path's inputs: {rel:.3e} of a field's max against its plain version")
-        kernel = lambda: kproj.project_fields_bwd(*args, cot)
-        plain = lambda: kproj.project_fields_bwd_plain(*args, cot)
+        kernel = lambda: kproj.project_fields_bwd(*args, cot, masked=masked)
+        plain = lambda: kproj.project_fields_bwd_plain(*args, cot, masked=masked)
+        extra = dict(extra, masked=masked)
     else:
-        got, want = kproj.project_fields(*args), kproj.project_fields_plain(*args)
+        def plain():
+            raw = kproj.project_fields_plain(*args)
+            return raw if payload_dtype is None else kproj.payload_fields_plain(raw, payload_dtype)
+
+        def kernel():
+            return kproj.project_fields(*args, payload_dtype=payload_dtype)
+
+        got, want = kernel(), plain()
         err = float((got - want).abs().max())
         equal = bits_equal(got, want)
         if not equal:
-            fail("project_fwd at the path's inputs differs from its plain version")
-        kernel = lambda: kproj.project_fields(*args)
-        plain = lambda: kproj.project_fields_plain(*args)
+            fail(f"project_fwd (payload_dtype={payload_dtype}) at the path's inputs differs from its plain version")
+        extra = dict(extra, payload_dtype=payload_dtype,
+                     ms_raw_fields=cuda_time_ms(lambda: kproj.project_fields(*args), 50, warmup=3)[0])
     del got, want
     ms = cuda_time_ms(kernel, 50, warmup=3)[0]
     plain_ms = cuda_time_ms(plain, 5, warmup=1)[0]
     traced = traced_calls(kernel, 20)
-    nbytes = sol.projection_bytes(n, cfg.sh_order, backward, cfg.only_sh, not cfg.soft_cutoff)
+    nbytes = sol.projection_bytes(n, cfg.sh_order, backward, cfg.only_sh, not cfg.soft_cutoff, masked)
     row = {"name": "project_bwd" if backward else "project_fwd", "route": "cuda", "source": PROJ_SRC,
            "replaces": PROJ_REPLACES, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
     row.update(bytes_bounds(nbytes))
@@ -2412,7 +2660,7 @@ def phase_train_kernels(splats, cam, cfg, counts):
                float32_space_bound_ms=(kept * 36 + other) / DEVICE["hbm_bw_datasheet"] * 1e3,
                float32_space_bound_sectors_ms=(kept * 64 + other) / DEVICE["hbm_bw_datasheet"] * 1e3)
     rows.append(row)
-    rows.append(projection_row(True, splats, cam, cfg, counts["project_bwd"]))
+    rows.append(projection_row(True, splats, cam, cfg, counts["project_bwd"], masked=True))
     return rows
 
 
@@ -2600,9 +2848,121 @@ def phase_kernels(splats, cam, cfg, counts, graph_counts, train_counts, scene_co
     rows.append(projection_row(
         False, splats, cam, cfg,
         counts["project_fwd"] + graph_counts["project_fwd"] + scene_counts["project_fwd"],
+        payload_dtype=cfg.payload_dtype,
         launches_by_path={"main_path": counts["project_fwd"], "main_path_graph": graph_counts["project_fwd"],
                           "scene_path": scene_counts["project_fwd"]},
         launches_train_path=train_counts["project_fwd"]))
+    paths = {"main_path": counts, "main_path_graph": graph_counts, "scene_path": scene_counts}
+    rows += glue_rows(splats, cam, cfg, paths, train_counts)
+    return rows
+
+
+GLUE_SRC = "gsplat_tpu_torch/csrc/frame_glue.cu"
+GLUE_REPLACES = ("none: XLA's fusion of the frame's glue under jax.jit (gsplat_tpu/render.py:41-126; "
+                 "gsplat_tpu/ops/binning.py:{})")
+
+
+def glue_row(name, replaces, kernel, plain, library, library_note, nbytes, paths, train_launches, device_ops=1,
+             **extra):
+    """A frame-glue kernel's row: times, its device time from a trace, its
+    bytes bound (the caller has held it to its plain version: bit-equal, so
+    max_abs_err 0)."""
+    ms = cuda_time_ms(kernel, 50, warmup=3)[0]
+    plain_ms = cuda_time_ms(plain, 10, warmup=2)[0]
+    library_ms = cuda_time_ms(library, 50, warmup=3)[0] if library is not None else None
+    traced = traced_calls(kernel, 20)
+    if traced["device_ops_per_call"] != device_ops:
+        fail(f"{name}: one call enqueued {traced['device_ops_per_call']} device operations, not {device_ops}")
+    row = {"name": name, "route": "cuda", "source": GLUE_SRC, "replaces": replaces,
+           "launches": sum(c[name] for c in paths.values()), "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms}
+    row.update(bytes_bounds(nbytes))
+    row.update(library_ms=library_ms, library=library_note, bound_share=row["bound_ms"] / ms,
+               device_us_per_call=traced["device_us_per_call"], device_ops_per_call=traced["device_ops_per_call"],
+               bound_share_of_device_time=row["bound_ms"] * 1e3 / traced["device_us_per_call"],
+               launches_by_path={k: c[name] for k, c in paths.items()}, launches_train_path=train_launches,
+               bit_equal_to_plain=True, bytes=nbytes, **extra)
+    return row
+
+
+def glue_rows(splats, cam, cfg, paths, train_counts):
+    """gather_payload, scatter_payload, mark_owners and expand_pairs at the
+    main path's inputs (its first camera, its tuned budget)."""
+    n, w, h = splats.count, cam.width, cam.height
+    fields = kproj.project_fields(*proj_args(splats, cam, cfg.sh_order, not cfg.soft_cutoff, cfg.only_sh),
+                                  payload_dtype=cfg.payload_dtype)
+    order = torch.argsort(fields[10], stable=True)
+    sat_cull, rho_ok = binning.sat_flags(n, w, h, cfg)
+    gather = lambda: kglue.gather_payload(fields, order, w, h, cfg, rho_ok)  # noqa: E731
+    gather_plain = lambda: kglue.gather_payload_plain(fields, order, w, h, cfg, rho_ok)  # noqa: E731
+    got, want = gather(), gather_plain()
+    if not all(same_words(getattr(got.operands, k), getattr(want.operands, k))
+               for k in ("counts", "nx", "tile0", "thr_q")) or not same_words(got.payload, want.payload):
+        fail("gather_payload at the main path's inputs differs from its plain version")
+    live_rows = 15 if cfg.depth_test else 14
+    read = n * (8 + 4 * (13 + int(cfg.depth_test)))
+    written = got.payload.numel() * 4 + n * 4 * (3 + int(rho_ok))
+    rows = [glue_row(
+        "gather_payload", GLUE_REPLACES.format("307 _tile_extents; gsplat_tpu/ops/pallas/composite.py:976-984"),
+        gather, gather_plain, lambda: fields[:live_rows].index_select(1, order),
+        "index_select of the live rows into depth order (the gather alone, no packing or extents)",
+        read + written, paths, train_counts["gather_payload"], splats=n, payload_dtype=cfg.payload_dtype,
+        bytes_read=read, bytes_written=written)]
+    ops = got.operands
+    del got, want
+    # the gather's gradient on the training path: the cotangent of the 10
+    # float32 rows back into storage order
+    g = torch.Generator(device=DEV)
+    g.manual_seed(14)
+    d_payload = torch.randn((10, n), generator=g, device=DEV)
+    if not same_words(kglue.scatter_payload(d_payload, order), kglue.scatter_payload_plain(d_payload, order)):
+        fail("scatter_payload at the main path's inputs differs from its plain version")
+    lib_out = torch.zeros((10, n), device=DEV)
+    read, written = n * (8 + 40), n * 64
+    rows.append(glue_row(
+        "scatter_payload", "none: XLA's fusion of the depth sort's VJP under jax.jit "
+        "(gsplat_tpu/ops/rasterize_tiles.py:30-43, gsplat_tpu/ops/permute.py's inverse gather)",
+        lambda: kglue.scatter_payload(d_payload, order), lambda: kglue.scatter_payload_plain(d_payload, order),
+        lambda: lib_out.index_copy_(1, order, d_payload),
+        "index_copy_ of the 10 rows into storage order (the 6 zero rows not written)", read + written,
+        {"train_path": train_counts}, train_counts["scatter_payload"], splats=n, bytes_read=read, bytes_written=written))
+    del d_payload, lib_out
+    budget = cfg.pair_budget(n)
+    nty, ntx = binning.tile_grid(w, h, cfg.tile_h, cfg.tile_w)
+    cum = kscan.scan_i32(ops.counts, "add")
+    marks_args = (cum, ops.counts, budget)
+    offs, marks = kglue.mark_owners(*marks_args)
+    want_offs, want_marks = kglue.mark_owners_plain(*marks_args)
+    if not same_words(offs, want_offs) or not same_words(marks, want_marks):
+        fail("mark_owners at the main path's inputs differs from its plain version")
+    del want_offs, want_marks
+    lib_marks = torch.zeros((budget + 1,), dtype=torch.int32, device=DEV)
+    lib_index = torch.clamp(offs, max=budget).long()
+    lib_ranks = torch.arange(1, n + 1, dtype=torch.int32, device=DEV)
+    rows.append(glue_row(
+        "mark_owners", GLUE_REPLACES.format("340-345, bin_splats' offsets and scatter-max"),
+        lambda: kglue.mark_owners(*marks_args), lambda: kglue.mark_owners_plain(*marks_args),
+        lambda: lib_marks.scatter_reduce_(0, lib_index, lib_ranks, "amax"),
+        "scatter_reduce_ (amax) of the ranks + 1 at the clamped offsets (offsets and indices given)",
+        n * 12 + (budget + 1) * 4, paths, train_counts["mark_owners"], device_ops=2, splats=n, pair_slots=budget,
+        note="a call is two kernels: the marks' zeroing (budget + 1 words, in the bytes bound) and the marks "
+             "(12 bytes a rank)"))
+    del lib_marks, lib_index, lib_ranks
+    smax = kscan.scan_i32(marks[:budget], "max")
+    args = (smax, cum, offs, ops, budget, nty * ntx, ntx, cfg, 0, 0, sat_cull, rho_ok, False)
+    a, b = kglue.expand_pairs(*args), kglue.expand_pairs_plain(*args)
+    if not same_words(a.key, b.key) or not same_words(a.tile, b.tile) or not same_words(a.rank, b.rank):
+        fail("expand_pairs at the main path's inputs differs from its plain version")
+    owners = int(torch.unique(torch.clamp(smax - 1, 0, n - 1)).numel())
+    per_owner = 4 * (3 + int(rho_ok)) + 24 * int(sat_cull)
+    total = int(cum[-1])
+    culled = int(((a.key >> kglue.rank_bits(n)) == nty * ntx).sum()) - max(budget - total, 0) if a.key is not None \
+        else None
+    rows.append(glue_row(
+        "expand_pairs", GLUE_REPLACES.format("386-539, bin_splats' expansion, SAT cull and key"),
+        lambda: kglue.expand_pairs(*args), lambda: kglue.expand_pairs_plain(*args), None,
+        "none: no single PyTorch call computes the expansion", budget * 8 + owners * per_owner, paths,
+        train_counts["expand_pairs"], pair_slots=budget, pairs=total, owning_ranks=owners,
+        pairs_culled_by_sat=culled, sat_cull=sat_cull, rho_ok=rho_ok))
     return rows
 
 
@@ -2754,7 +3114,8 @@ def rank_sharded_render(rank, world, n_splats, width, height, frames):
         ex_dropped.append(int(stats.exchange_dropped))
     counts = read_counters()
     want = expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames,
-                         composite_fwd=frames, composite_fwd_strided=frames, project_fwd=frames)
+                         composite_fwd=frames, composite_fwd_strided=frames, project_fwd=frames,
+                         expand_pairs=frames, mark_owners=frames)
     if counts != want:
         fail(f"sharded frames, rank {rank}: launch counts {counts}, expected {want}")
     if any(dropped) or any(ex_dropped):
@@ -2811,7 +3172,7 @@ def rank_sharded_render(rank, world, n_splats, width, height, frames):
     counts = read_counters()
     want = expect_counts(scan_i32_add=1, scan_i32_max=3, scan_i32=4, composite_fwd=1, composite_fwd_checkpoint=1,
                          composite_fwd_strided=1, composite_bwd=1, composite_bwd_strided=1, segsum=1,
-                         project_fwd=1, project_bwd=1)
+                         project_fwd=1, project_bwd=1, expand_pairs=1, mark_owners=1)
     if counts != want:
         fail(f"sharded gradient, rank {rank}: launch counts {counts}, expected {want}")
     full = splat_grads(splats, cams[0], cfg0, weights, "auto")
@@ -2923,7 +3284,8 @@ def rank_sharded_train(rank, world, n_splats, width, height, steps):
     strided = steps if mesh.sp_index > 0 else 0  # sp index 0's strip is the identity mapping
     want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps, composite_fwd=steps,
                          composite_fwd_checkpoint=steps, composite_fwd_strided=strided, composite_bwd=steps,
-                         composite_bwd_strided=strided, segsum=steps, project_fwd=steps, project_bwd=steps)
+                         composite_bwd_strided=strided, segsum=steps, project_fwd=steps, project_bwd=steps,
+                         expand_pairs=steps, mark_owners=steps)
     if counts != want:
         fail(f"sharded training, rank {rank}: launch counts {counts}, expected {want}")
     want_loss = sum(ref_losses) / dp

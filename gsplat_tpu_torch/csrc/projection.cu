@@ -32,6 +32,20 @@
 // tight_footprint and only_sh are launch arguments, sh_order a template
 // parameter.
 //
+// The serving frame's form (payload > 0, a launch argument): the forward
+// also sanitizes its column (an invalid splat takes the benign values of
+// ops/rasterize_ref.py's _BENIGN, +inf depth included) and rounds rows 6..9
+// (packed) or 0..9 (bf16) to bf16 and back, round to nearest even, as
+// sanitize_projected then quantize_payload do; and it writes the matrix
+// splat-major, each splat's 16 words one 64-byte record, because the next
+// kernel of the frame (frame_glue.cu's gather_payload) reads the columns in
+// depth order, at random positions: a record is two sectors there, where
+// 16 rows n apart are 16.  The bytes are the same 300 a splat.  The
+// backward of that form (masked, a launch argument) is sanitize's VJP
+// folded in: an invalid splat's cotangent is taken as zero, and the kernel
+// writes the opacity's gradient (and the colour's at sh_order 0) itself,
+// the masked cotangent rows, where the plain form hands back views.
+//
 // What bounds both: bytes.  The forward moves 300 B a splat at sh_order 3
 // (236 read, 64 written), the backward 516 B (232 + 52 read, 232 written;
 // 4 more with tight_footprint);
@@ -60,11 +74,15 @@
 // entry returns cudaGetLastError() after its launch (nothing is launched for
 // n == 0: a grid of zero blocks is a launch error).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+// project_fwd's payload policies (ops/kernels/projection.py PAYLOAD_CODE).
+constexpr int PAYLOAD_RAW = 0, PAYLOAD_F32 = 1, PAYLOAD_PACKED = 2, PAYLOAD_BF16 = 3;
 
 constexpr int THREADS = 256;
 // The backward holds ~160 registers a thread at sh_order 3: in blocks of 128
@@ -350,15 +368,43 @@ project_fwd_kernel(const float* __restrict__ pos, const float* __restrict__ orie
                    const float* __restrict__ color, const float* __restrict__ sh,
                    const float* __restrict__ view, const float* __restrict__ proj,
                    const float* __restrict__ cpos, float* __restrict__ out, long long n,
-                   int width, int height, bool tight, bool only_sh) {
+                   int width, int height, bool tight, bool only_sh, int payload) {
     __shared__ Cam cam;
     load_cam(cam, view, proj, cpos);
     const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
     if (i >= n) return;
     Fwd<SH> f;
     project_one<SH, false>(f, cam, i, n, pos, orient, scale, opacity, color, sh, width, height, tight, only_sh);
-    const float row[16] = {f.mean_x, f.mean_y, f.ax, f.ay, f.bx, f.by, f.rgb[0], f.rgb[1], f.rgb[2], f.op,
-                           f.depth_sq, f.valid ? 1.0f : 0.0f, f.half_x, f.half_y, -f.vz, 0.0f};
+    float row[16] = {f.mean_x, f.mean_y, f.ax, f.ay, f.bx, f.by, f.rgb[0], f.rgb[1], f.rgb[2], f.op,
+                     f.depth_sq, f.valid ? 1.0f : 0.0f, f.half_x, f.half_y, -f.vz, 0.0f};
+    if (payload != PAYLOAD_RAW) {
+        // sanitize_projected: an invalid column takes _BENIGN's values
+        // (ops/rasterize_ref.py), +inf depth included, which sorts it last
+        if (!f.valid) {
+#pragma unroll
+            for (int r = 0; r < 16; ++r) row[r] = 0.0f;
+            row[0] = -1e7f;
+            row[1] = -1e7f;
+            row[2] = 1.0f;
+            row[5] = 1.0f;
+            row[10] = INFINITY;
+        }
+        // quantize_payload: rows 6..9 (packed) or 0..9 (bfloat16) rounded to
+        // bf16 and back, round to nearest even
+        if (payload == PAYLOAD_PACKED) {
+#pragma unroll
+            for (int r = 6; r < 10; ++r) row[r] = __bfloat162float(__float2bfloat16_rn(row[r]));
+        } else if (payload == PAYLOAD_BF16) {
+#pragma unroll
+            for (int r = 0; r < 10; ++r) row[r] = __bfloat162float(__float2bfloat16_rn(row[r]));
+        }
+        // splat-major: the splat's 16 words are one 64-byte record, which
+        // the depth-order gather reads at a random position in two sectors
+        float4* rec = reinterpret_cast<float4*>(out + i * 16);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) rec[q] = make_float4(row[4 * q], row[4 * q + 1], row[4 * q + 2], row[4 * q + 3]);
+        return;
+    }
 #pragma unroll
     for (int r = 0; r < 16; ++r) out[r * n + i] = row[r];
 }
@@ -376,8 +422,9 @@ project_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ orie
                    const float* __restrict__ view, const float* __restrict__ proj,
                    const float* __restrict__ cpos, const float* __restrict__ grad,
                    float* __restrict__ d_pos, float* __restrict__ d_orient, float* __restrict__ d_scale,
-                   float* __restrict__ d_color, float* __restrict__ d_sh,
-                   long long n, int width, int height, bool tight, bool only_sh) {
+                   float* __restrict__ d_color, float* __restrict__ d_sh, float* __restrict__ d_opacity,
+                   long long n, long long g_rs, long long g_cs, int width, int height, bool tight, bool only_sh,
+                   bool masked) {
     __shared__ Cam cam;
     load_cam(cam, view, proj, cpos);
     const long long i = (long long)blockIdx.x * THREADS_BWD + threadIdx.x;
@@ -386,11 +433,26 @@ project_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ orie
     project_one<SH, true>(f, cam, i, n, pos, orient, scale, opacity, color, sh, width, height, tight, only_sh);
     const float* V = cam.v;
     const float* P = cam.p;
-    // rows 9, 11 and 15 (and 6..8 at sh_order 0) carry no gradient here
+    // masked: the fields were sanitized in the forward (the payload form),
+    // whose VJP zeroes an invalid column's cotangent
+    const bool keep = !masked || f.valid;
+    // rows 9, 11 and 15 (and 6..8 at sh_order 0) carry no gradient here:
+    // the opacity's (and then the colour's) is the cotangent row itself,
+    // which the kernel writes only in the masked form (else the caller
+    // takes a view of the cotangent)
     float g[16];
 #pragma unroll
     for (int r = 0; r < 16; ++r)
-        g[r] = (r == 9 || r == 11 || r == 15 || (SH == 0 && r >= 6 && r <= 8)) ? 0.0f : __ldg(grad + r * n + i);
+        g[r] = (!keep || r == 9 || r == 11 || r == 15 || (SH == 0 && r >= 6 && r <= 8))
+                   ? 0.0f : __ldg(grad + r * g_rs + i * g_cs);
+    if (masked) {
+        d_opacity[i] = keep ? __ldg(grad + 9 * g_rs + i * g_cs) : 0.0f;
+        if (SH == 0 && !only_sh) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+                d_color[c * n + i] = keep ? __ldg(grad + (6 + c) * g_rs + i * g_cs) : 0.0f;
+        }
+    }
 
     // --- colour (rows 6..8) and the depth key (row 10) ---
     float gc[3] = {g[6], g[7], g[8]};
@@ -644,20 +706,20 @@ project_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ orie
 
 template <int SH>
 cudaError_t launch_fwd(const float* const* in, float* out, long long n, int w, int h, bool tight, bool only_sh,
-                       cudaStream_t s) {
+                       int payload, cudaStream_t s) {
     const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
     project_fwd_kernel<SH><<<blocks, THREADS, 0, s>>>(in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7],
-                                                      in[8], out, n, w, h, tight, only_sh);
+                                                      in[8], out, n, w, h, tight, only_sh, payload);
     return cudaGetLastError();
 }
 
 template <int SH>
-cudaError_t launch_bwd(const float* const* in, float* const* out, long long n, int w, int h, bool tight,
-                       bool only_sh, cudaStream_t s) {
+cudaError_t launch_bwd(const float* const* in, float* const* out, long long n, long long g_rs, long long g_cs,
+                       int w, int h, bool tight, bool only_sh, bool masked, cudaStream_t s) {
     const unsigned blocks = (unsigned)((n + THREADS_BWD - 1) / THREADS_BWD);
     project_bwd_kernel<SH><<<blocks, THREADS_BWD, 0, s>>>(in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7],
-                                                      in[8], in[9], out[0], out[1], out[2], out[3], out[4], n,
-                                                      w, h, tight, only_sh);
+                                                      in[8], in[9], out[0], out[1], out[2], out[3], out[4],
+                                                      out[5], n, g_rs, g_cs, w, h, tight, only_sh, masked);
     return cudaGetLastError();
 }
 
@@ -665,13 +727,17 @@ cudaError_t launch_bwd(const float* const* in, float* const* out, long long n, i
 
 // Inputs float32 and contiguous: pos (3, n), orient (4, n), scale (3, n),
 // opacity (n,), color (3, n), sh (45, n), view (4, 4), proj (4, 4),
-// cam_pos (3,).  out: (16, n); every entry is written.
+// cam_pos (3,).  out: (16, n) row-major; every entry is written.  payload:
+// 0 the raw fields, 1 sanitized, 2 sanitized and rows 6..9 rounded to bf16
+// (packed), 3 sanitized and rows 0..9 rounded to bf16; with payload > 0 out
+// is splat-major, (n, 16) row-major (16-byte aligned).
 extern "C" int gsplat_project_fwd(const void* pos, const void* orient, const void* scale, const void* opacity,
                                   const void* color, const void* sh, const void* view, const void* proj,
                                   const void* cam_pos, void* out, long long n, int width, int height,
-                                  int sh_order, int tight, int only_sh, void* stream) {
+                                  int sh_order, int tight, int only_sh, int payload, void* stream) {
     if (n <= 0) return 0;
-    if (sh_order < 0 || sh_order > 3) return (int)cudaErrorInvalidValue;
+    if (sh_order < 0 || sh_order > 3 || payload < PAYLOAD_RAW || payload > PAYLOAD_BF16)
+        return (int)cudaErrorInvalidValue;
     const float* in[9] = {
         static_cast<const float*>(pos), static_cast<const float*>(orient), static_cast<const float*>(scale),
         static_cast<const float*>(opacity), static_cast<const float*>(color), static_cast<const float*>(sh),
@@ -680,39 +746,45 @@ extern "C" int gsplat_project_fwd(const void* pos, const void* orient, const voi
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
     const bool t = tight != 0, g = only_sh != 0;
     switch (sh_order) {
-        case 0: return (int)launch_fwd<0>(in, o, n, width, height, t, g, s);
-        case 1: return (int)launch_fwd<1>(in, o, n, width, height, t, g, s);
-        case 2: return (int)launch_fwd<2>(in, o, n, width, height, t, g, s);
-        default: return (int)launch_fwd<3>(in, o, n, width, height, t, g, s);
+        case 0: return (int)launch_fwd<0>(in, o, n, width, height, t, g, payload, s);
+        case 1: return (int)launch_fwd<1>(in, o, n, width, height, t, g, payload, s);
+        case 2: return (int)launch_fwd<2>(in, o, n, width, height, t, g, payload, s);
+        default: return (int)launch_fwd<3>(in, o, n, width, height, t, g, payload, s);
     }
 }
 
-// The same inputs and grad (16, n).  Outputs (n-strided rows, every entry
+// The same inputs and grad (16, n): entry (r, i) at grad[r * g_rs + i *
+// g_cs], row-major (n, 1) or, the gradient frame's scatter_payload writes
+// it so, splat-major (1, 16).  Outputs (n-strided rows, every entry
 // written): d_pos (3, n), d_orient (4, n), d_scale (3, n), d_color (3, n)
-// when sh_order > 0 and not only_sh (else null, and not read), d_sh (45, n)
-// when sh_order > 0 (else null).  The opacity is read only with tight, the
-// colour only where d_color is written.
+// when not only_sh and sh_order > 0 or masked (else null, and not read),
+// d_sh (45, n) when sh_order > 0 (else null), d_opacity (n,) when masked
+// (else null).  masked: the cotangent of sanitized fields (the forward's
+// payload form), zeroed where the splat is invalid.  The opacity is read
+// only with tight, the colour only where d_color is written.
 extern "C" int gsplat_project_bwd(const void* pos, const void* orient, const void* scale, const void* opacity,
                                   const void* color, const void* sh, const void* view, const void* proj,
                                   const void* cam_pos, const void* grad, void* d_pos, void* d_orient,
-                                  void* d_scale, void* d_color, void* d_sh, long long n,
-                                  int width, int height, int sh_order, int tight, int only_sh, void* stream) {
+                                  void* d_scale, void* d_color, void* d_sh, void* d_opacity, long long n,
+                                  long long g_rs, long long g_cs, int width, int height, int sh_order, int tight,
+                                  int only_sh, int masked, void* stream) {
     if (n <= 0) return 0;
     if (sh_order < 0 || sh_order > 3) return (int)cudaErrorInvalidValue;
-    if (sh_order > 0 && ((only_sh == 0 && d_color == nullptr) || d_sh == nullptr)) return (int)cudaErrorInvalidValue;
+    if (only_sh == 0 && (sh_order > 0 || masked != 0) && d_color == nullptr) return (int)cudaErrorInvalidValue;
+    if ((sh_order > 0 && d_sh == nullptr) || (masked != 0 && d_opacity == nullptr)) return (int)cudaErrorInvalidValue;
     const float* in[10] = {
         static_cast<const float*>(pos), static_cast<const float*>(orient), static_cast<const float*>(scale),
         static_cast<const float*>(opacity), static_cast<const float*>(color), static_cast<const float*>(sh),
         static_cast<const float*>(view), static_cast<const float*>(proj), static_cast<const float*>(cam_pos),
         static_cast<const float*>(grad)};
-    float* out[5] = {static_cast<float*>(d_pos), static_cast<float*>(d_orient), static_cast<float*>(d_scale),
-                     static_cast<float*>(d_color), static_cast<float*>(d_sh)};
+    float* out[6] = {static_cast<float*>(d_pos), static_cast<float*>(d_orient), static_cast<float*>(d_scale),
+                     static_cast<float*>(d_color), static_cast<float*>(d_sh), static_cast<float*>(d_opacity)};
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-    const bool t = tight != 0, g = only_sh != 0;
+    const bool t = tight != 0, g = only_sh != 0, m = masked != 0;
     switch (sh_order) {
-        case 0: return (int)launch_bwd<0>(in, out, n, width, height, t, g, s);
-        case 1: return (int)launch_bwd<1>(in, out, n, width, height, t, g, s);
-        case 2: return (int)launch_bwd<2>(in, out, n, width, height, t, g, s);
-        default: return (int)launch_bwd<3>(in, out, n, width, height, t, g, s);
+        case 0: return (int)launch_bwd<0>(in, out, n, g_rs, g_cs, width, height, t, g, m, s);
+        case 1: return (int)launch_bwd<1>(in, out, n, g_rs, g_cs, width, height, t, g, m, s);
+        case 2: return (int)launch_bwd<2>(in, out, n, g_rs, g_cs, width, height, t, g, m, s);
+        default: return (int)launch_bwd<3>(in, out, n, g_rs, g_cs, width, height, t, g, m, s);
     }
 }

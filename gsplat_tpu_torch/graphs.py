@@ -50,14 +50,12 @@ from typing import Any, Callable, Dict, Iterator, Tuple
 
 import torch
 
-from .ops.kernels import composite, probes, projection, scan, segsum
+from .ops import kernels
 
 # device index -> the capture stream / (the memory pool every graph shares,
 # the graphs alive in it)
 _streams: Dict[int, torch.cuda.Stream] = {}
 _pools: Dict[int, Tuple[Any, weakref.WeakSet]] = {}
-
-_COUNTED = (scan, composite, segsum, probes, projection)
 
 
 def _index(device) -> int:
@@ -119,29 +117,14 @@ def run_on_capture_stream(fn: Callable, *args, device=None):
 
 
 def counter_values() -> Dict[Tuple[Any, str, Any], int]:
-    """Every launch counter of the kernel wrappers (``launches*`` of
-    ``ops/kernels/{scan,composite,segsum,probes,projection}.py``), keyed by (module,
-    name, key of a dict counter or None)."""
-    out = {}
-    for mod in _COUNTED:
-        for name, v in vars(mod).items():
-            if not name.startswith("launches"):
-                continue
-            if isinstance(v, dict):
-                for k, x in v.items():
-                    out[(mod, name, k)] = x
-            elif isinstance(v, int):
-                out[(mod, name, None)] = v
-    return out
+    """Every launch counter of the kernel wrappers (the table of
+    ``ops/kernels/__init__.py``), keyed by (module, name, key of a dict
+    counter or None)."""
+    return kernels.slot_values()
 
 
 def _set_counts(values: Dict[Tuple[Any, str, Any], int], add: bool = False) -> None:
-    for (mod, name, k), v in values.items():
-        if k is None:
-            setattr(mod, name, getattr(mod, name) + v if add else v)
-        else:
-            counter = getattr(mod, name)
-            counter[k] = counter[k] + v if add else v
+    kernels.set_slots(values, add=add)
 
 
 class CapturedGraph:

@@ -40,23 +40,17 @@ here reads a value back to the host.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import torch
 
 from ..utils.config import RenderConfig
 from ..utils.logging import format_count, get_logger
-from .covariance import ALPHA_CUTOFF, QUAD_EXTENT
+from .kernels import frame_glue as kglue
+from .kernels.frame_glue import BinOperands, FrameGlue, _tile_extents, tile_grid
 from .kernels.scan import scan_i32
-from .projection import (
-    ROW_CX,
-    ROW_CY,
-    ROW_HX,
-    ROW_HY,
-    ROW_OP,
-    ROW_VALID,
-    ProjectedSplats,
-)
+from .projection import ProjectedSplats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,9 +102,10 @@ _log = get_logger("binning")
 # it force-disabled and assert equality.  It only removes exact-zero pairs.
 _SAT_CULL_ENABLED = True
 
-# Above this many splats the JAX package skips the SAT cull; kept so both
-# packages bin the same pairs at every size.
-_SAT_CULL_MAX_N = 4_194_304
+# Above this many splats the SAT cull is skipped.  Read from the same
+# environment variable, with the same default, as the JAX package reads it,
+# so both packages bin the same pairs at every size and setting.
+_SAT_CULL_MAX_N = int(os.environ.get("GSPLAT_SAT_MAX_N", 4_194_304))
 
 
 def _warn_dropped(dropped) -> None:
@@ -188,11 +183,6 @@ def warn_if_dropped(binned: "BinnedPairs", config: RenderConfig) -> None:
     _warn_dropped(d)
 
 
-def tile_grid(width: int, height: int, tile_h: int, tile_w: int) -> Tuple[int, int]:
-    """Number of tiles (rows, cols) covering the screen."""
-    return -(-height // tile_h), -(-width // tile_w)
-
-
 def pair_pad_size(budget: int, chunk: int) -> int:
     """Static padded pair-array length: the last tile's final chunk may read
     past ``budget`` (``base + ceil(span/chunk)·chunk ≤ budget + chunk``)."""
@@ -205,56 +195,45 @@ def grad_pad_size(budget: int, num_tiles: int, chunk: int) -> int:
     return -(-(budget + num_tiles * 2 * (chunk - 1)) // chunk) * chunk + chunk
 
 
-_I32_SAFE = float(1 << 30)
+def sat_flags(n: int, width: int, height: int, config: RenderConfig) -> Tuple[bool, bool]:
+    """``(sat_cull, rho_ok)`` of a binning of ``n`` splats.
 
-
-def _floor_i32(x: torch.Tensor) -> torch.Tensor:
-    """floor → int32, saturating far outside any tile grid (a float beyond
-    the int32 range converts to an unspecified value otherwise)."""
-    return torch.clamp(torch.floor(x), -_I32_SAFE, _I32_SAFE).to(torch.int32)
-
-
-def _axis_tiles(p_lo, p_hi, tile_px, off, stride, nt):
-    """Pixel range → local tile range on one axis under the strided mapping
-    (global tile g = off + ℓ·stride).  Returns (ℓ0, ℓ1, empty): clipped
-    local bounds plus the empty-range cull flag."""
-    g0 = _floor_i32(p_lo / tile_px) - off
-    g1 = _floor_i32(p_hi / tile_px) - off
-    if stride == 1:
-        l0, l1 = g0, g1
-    else:
-        l0 = torch.div(g0 + (stride - 1), stride, rounding_mode="floor")
-        l1 = torch.div(g1, stride, rounding_mode="floor")
-    empty = (l1 < l0) | (l1 < 0) | (l0 > nt - 1)
-    return torch.clamp(l0, 0, nt - 1), torch.clamp(l1, 0, nt - 1), empty
-
-
-def _tile_extents(f, width: int, height: int, config: RenderConfig, row_offset, col_offset):
-    """Per-splat tile-coverage counts + bbox operands (shared by binning and
-    the budget-tuning count pass so both cull/extent rules stay identical).
-
-    Local tile (ℓy, ℓx) covers GLOBAL tile
-    (``row_offset + ℓy·row_stride``, ``col_offset + ℓx·col_stride``)."""
+    Exact-coverage pair cull (hard-cutoff beauty pass only): the AABB
+    expansion overcounts tiles at a *rotated* quad's corners.  A
+    separating-axis test of the tile's pixel-center rect against the
+    ±QUAD_EXTENT parallelogram (the compositor's ``inside`` mask support)
+    culls pairs that cannot contain a nonzero pixel — image-exact.  Skipped
+    in wireframe mode and soft mode (no inside mask), and above
+    ``GSPLAT_SAT_MAX_N`` splats.  ``rho_ok``: the cull is tightened to the
+    opacity's discard radius where the JAX package's packed operand row has
+    room for its 8-bit threshold."""
     nty, ntx = tile_grid(width, height, config.tile_h, config.tile_w)
+    num_tiles = nty * ntx
+    sat_cull = (
+        _SAT_CULL_ENABLED
+        and (not config.soft_cutoff)
+        and (not config.wireframe)
+        and n <= _SAT_CULL_MAX_N
+    )
+    bits_nx = ntx.bit_length()
+    packed_ok = (num_tiles << bits_nx) < 2**31
+    rho_ok = packed_ok and ((num_tiles << (bits_nx + 8)) < 2**31) and sat_cull
+    return sat_cull, rho_ok
 
-    x_lo = f[ROW_CX] - f[ROW_HX]
-    x_hi = f[ROW_CX] + f[ROW_HX]
-    y_lo = f[ROW_CY] - f[ROW_HY]
-    y_hi = f[ROW_CY] + f[ROW_HY]
 
-    # Cull: behind camera or opacity below the discard threshold; off-screen
-    # coverage culls through the empty-range flags below.
-    cull = (f[ROW_VALID] < 0.5) | (f[ROW_OP] < ALPHA_CUTOFF)
-
-    tw = float(config.tile_w)
-    th = float(config.tile_h)
-    tx0, tx1, ex = _axis_tiles(x_lo, x_hi, tw, col_offset, config.col_stride, ntx)
-    ty0, ty1, ey = _axis_tiles(y_lo, y_hi, th, row_offset, config.row_stride, nty)
-    cull = cull | ex | ey
-    nx = torch.where(cull, 0, tx1 - tx0 + 1)
-    ny = torch.where(cull, 0, ty1 - ty0 + 1)
-    counts = nx * ny
-    return counts, nx, tx0, ty0
+def gather_frame(fields: torch.Tensor, order: torch.Tensor, width: int, height: int,
+                 config: RenderConfig, differentiable: bool = False) -> FrameGlue:
+    """The compositor's payload and the binning's operands of a frame, in
+    depth order (``kernels.frame_glue.gather_payload``): ``fields`` is the
+    sanitized, quantized ``(16, N)`` matrix in storage order, ``order`` the
+    depth permutation.  ``differentiable``: the float32 rows that
+    ``composite_splats_diff`` reads, with the gradient going back to
+    ``fields`` (``kernels.frame_glue.GatherPayload``).  Bin with
+    ``bin_splats(None, ..., operands=...)``."""
+    _, rho_ok = sat_flags(fields.shape[-1], width, height, config)
+    if differentiable:
+        return kglue.gather_payload_diff(fields, order, width, height, config, rho_ok)
+    return kglue.gather_payload(fields, order, width, height, config, rho_ok)
 
 
 def count_pairs(
@@ -285,6 +264,7 @@ def bin_splats(
     order: torch.Tensor = None,
     budget: int = None,
     col_offset: int = 0,
+    operands: BinOperands = None,
 ) -> BinnedPairs:
     """Bin sanitized projected splats into tiles.
 
@@ -300,11 +280,21 @@ def bin_splats(
     region, in tiles (sharded rendering; 0 for a full frame).
 
     ``budget``: overrides ``config.pair_budget(n)``.
+
+    ``operands``: the per-rank binning operands of the frame, as
+    :func:`gather_frame` wrote them beside the payload (``render_cuda``'s
+    frame, with a gradient or without); then ``sorted_projected`` is not
+    read and may be None, and ``order`` only maps ``pair_splat`` to storage
+    indices.
     """
-    f = sorted_projected.fields
-    dev = f.device
     i32 = torch.int32
-    n = sorted_projected.count
+    if operands is None:
+        f = sorted_projected.fields
+        dev = f.device
+        n = sorted_projected.count
+    else:
+        dev = operands.counts.device
+        n = operands.counts.shape[0]
     nty, ntx = tile_grid(width, height, config.tile_h, config.tile_w)
     num_tiles = nty * ntx
     if budget is None:
@@ -328,9 +318,19 @@ def bin_splats(
         )
     row_offset = int(row_offset)
     col_offset = int(col_offset)
-    counts, nx, tx0, ty0 = _tile_extents(f, width, height, config, row_offset, col_offset)
-
-    counts_d = counts[order] if order is not None else counts
+    sat_cull, rho_ok = sat_flags(n, width, height, config)
+    if operands is None:
+        ops = kglue.tile_operands(f, width, height, config, row_offset, col_offset, rho_ok, f[0:6])
+        if order is not None:
+            # only the small per-splat operands go through the permutation
+            ops = BinOperands(
+                counts=ops.counts[order], nx=ops.nx[order], tile0=ops.tile0[order],
+                thr_q=ops.thr_q[order] if rho_ok else None,
+                quad=ops.quad[:, order] if sat_cull else ops.quad,
+            )
+    else:
+        ops = operands
+    counts_d = ops.counts
 
     # Ragged → static: pair k belongs to the (depth-ranked) splat whose
     # inclusive prefix sum first exceeds k.  Ranks ascend with distance, so
@@ -340,124 +340,11 @@ def bin_splats(
     # with the next non-empty rank, whose larger id wins the max.
     cum = scan_i32(counts_d.contiguous(), "add")
     cum_last = cum[-1]
-    total = torch.clamp(cum_last, max=budget)
-    offsets = cum - counts_d
-    pair_idx = torch.arange(budget, dtype=i32, device=dev)
-    splat_ids = torch.arange(n, dtype=i32, device=dev)
-    # Offsets ≥ budget are dropped: they land in one extra slot that is cut
-    # off again (a scatter may not see an out-of-range index).
-    marks = torch.zeros((budget + 1,), dtype=i32, device=dev)
-    marks.scatter_reduce_(
-        0, torch.clamp(offsets, max=budget).long(), splat_ids + 1, "amax", include_self=True
-    )
-    s_safe = torch.clamp(scan_i32(marks[:budget].contiguous(), "max") - 1, max=n - 1)
-    s_safe = torch.clamp(s_safe, min=0).long()
+    offsets, marks = kglue.mark_owners(cum, counts_d, budget)
+    smax = scan_i32(marks[:budget], "max")
 
-    nx1 = torch.clamp(nx, min=1)
-    tile0 = ty0 * ntx + tx0
-    bits_nx = ntx.bit_length()
-    packed_ok = (num_tiles << bits_nx) < 2**31
-    # Exact-coverage pair cull (hard-cutoff beauty pass only): the AABB
-    # expansion overcounts tiles at a *rotated* quad's corners.  A
-    # separating-axis test of the tile's pixel-center rect against the
-    # ±QUAD_EXTENT parallelogram (the compositor's ``inside`` mask support)
-    # culls pairs that cannot contain a nonzero pixel — image-exact.
-    # Skipped in wireframe mode and soft mode (no inside mask).
-    sat_cull = (
-        _SAT_CULL_ENABLED
-        and (not config.soft_cutoff)
-        and (not config.wireframe)
-        and n <= _SAT_CULL_MAX_N
-    )
-    bits_tile = max(num_tiles.bit_length(), 1)
-    # Opacity-aware SAT threshold: the compositor also discards α < 1/255, so
-    # a splat's support is bounded by the quad AND the disc power ≤ ln(255·op)
-    # — per-axis |q| ≤ min(QUAD_EXTENT, ρ), ρ = √ln(255·op).  ρ is
-    # CEIL-quantized to 8 bits, exactly as the JAX package packs it, so the
-    # dequantized threshold can only be looser (the cull stays exact).
-    rho_ok = packed_ok and ((num_tiles << (bits_nx + 8)) < 2**31) and sat_cull
-    thr_q = None
-    if rho_ok:
-        rho = torch.sqrt(
-            torch.log(torch.clamp(f[ROW_OP], min=ALPHA_CUTOFF) / ALPHA_CUTOFF)
-        )
-        thr_q = torch.clamp(
-            torch.ceil(
-                torch.clamp(rho, max=QUAD_EXTENT) * (255.0 / QUAD_EXTENT)
-            ).to(i32),
-            max=255,
-        )
-
-    def ranked(x):
-        return x[order] if order is not None else x
-
-    # Per-pair expansion operands.  (The JAX package bit-packs them into one
-    # gathered row; here they are plain per-row gathers of the same values.)
-    nx_s = ranked(nx1)[s_safe]
-    tile0_s = ranked(tile0)[s_safe]
-    r = pair_idx - offsets[s_safe]
-    # r // nx as an integer floor division (the JAX package takes a float
-    # quotient only because its target has no integer divide; the values
-    # are equal: 0 ≤ r < 2^24 and nx ≥ 1).
-    dty = torch.div(r, nx_s, rounding_mode="floor")
-    dtx = r - dty * nx_s
-    tile = tile0_s + dty * ntx + dtx
-    pair_valid = pair_idx < total
-    live = pair_valid
-    if sat_cull:
-        fq = f[0:6]  # cx, cy, ax, ay, bx, by
-        if order is not None:
-            fq = fq[:, order]
-        g = fq[:, s_safe]
-        cx_s, cy_s, ax_s, ay_s, bx_s, by_s = g[0], g[1], g[2], g[3], g[4], g[5]
-        # Tile's pixel-center rect: center (pcx, pcy), half-extent
-        # (tw−1)/2 px (pixel centers sit 0.5 px inside the tile edges).
-        ty0_s = torch.div(tile0_s, ntx, rounding_mode="floor")
-        tx_t = (tile0_s - ty0_s * ntx + dtx).to(torch.float32) * float(
-            config.col_stride
-        ) + float(col_offset)
-        ty_t = (ty0_s.to(torch.float32) + dty.to(torch.float32)) * float(
-            config.row_stride
-        ) + float(row_offset)
-        tw = float(config.tile_w)
-        th = float(config.tile_h)
-        pcx = tx_t * tw + (tw * 0.5) - cx_s
-        pcy = ty_t * th + (th * 0.5) - cy_s
-        hx_r = (tw - 1.0) * 0.5
-        hy_r = (th - 1.0) * 0.5
-        # Quad-axis intervals of the rect: |q·c| ± h·(|a|+|b|); separated on
-        # an axis ⇒ every pixel center fails the compositor's |q|∞ ≤ 2 mask.
-        qxc = ax_s * pcx + ay_s * pcy
-        qyc = bx_s * pcx + by_s * pcy
-        e1 = hx_r * torch.abs(ax_s) + hy_r * torch.abs(ay_s)
-        e2 = hx_r * torch.abs(bx_s) + hy_r * torch.abs(by_s)
-        # Per-splat separation threshold: the quad extent, tightened to the
-        # opacity discard radius ρ (CEIL-quantized, so only ever looser than
-        # the true ρ).  Separation at ρ on either quad axis means
-        # power > ρ² = ln(op/cutoff) at every pixel center, i.e. α < 1/255.
-        if rho_ok:
-            thr1 = ranked(thr_q)[s_safe].to(torch.float32) * (QUAD_EXTENT / 255.0)
-        else:
-            thr1 = QUAD_EXTENT
-        # Margin: 1e-3 quad units absolute (association-order rounding vs the
-        # compositor's own qx/qy evaluation) plus a magnitude-relative term
-        # for needle splats, where the two products nearly cancel.
-        err1 = 1e-3 + 1e-6 * (torch.abs(ax_s * pcx) + torch.abs(ay_s * pcy))
-        err2 = 1e-3 + 1e-6 * (torch.abs(bx_s * pcx) + torch.abs(by_s * pcy))
-        separated = (torch.abs(qxc) > thr1 + err1 + e1) | (
-            torch.abs(qyc) > thr1 + err2 + e2
-        )
-        live = live & torch.logical_not(separated)
-    tile = torch.where(live, tile, num_tiles)
-    # Invalid pairs point at *spread* real ranks instead of one shared
-    # sentinel (kept from the JAX package so the arrays compare equal).  Safe
-    # because an invalid pair's payload is never read: it sorts past every
-    # tile's span and ``build_tile_lists`` drops it by its sentinel TILE id.
-    spread_mask = (1 << max(int(n).bit_length() - 1, 0)) - 1
-    spread = torch.clamp(pair_idx & spread_mask, max=n - 1)
-    rank_of_pair = torch.where(pair_valid, s_safe.to(i32), spread)
-
-    # One sort by tile groups pairs per tile while preserving the global
+    # Per-pair expansion, exact-coverage cull and sort key (one kernel).
+    # One sort by tile then groups pairs per tile while preserving the global
     # front-to-back order within each tile.  (tile, rank) is packed into a
     # single int32 key when the bit budget allows.  Keys of valid pairs are
     # unique (a splat touches a tile at most once), so stability is moot for
@@ -466,24 +353,25 @@ def bin_splats(
     # gradient map the expansion index rides through the sort as its
     # permutation: the sort is then stable, so that ``dest_of_exp`` of
     # dropped pairs equals the JAX package's (whose sort is stable).
+    pk = kglue.expand_pairs(smax, cum, offsets, ops, budget, num_tiles, ntx, config, row_offset, col_offset,
+                            sat_cull, rho_ok, with_grad_map)
+    spread_mask = kglue.spread_mask(n)
     tile_ids = torch.arange(num_tiles + 1, dtype=i32, device=dev)
-    bits_r = max((n - 1).bit_length(), 1)
-    key_ok = ((num_tiles + 1) << bits_r) <= 2**31 - 1
+    bits_r = kglue.rank_bits(n)
     eidx_sorted = None
-    if key_ok:
-        key = (tile << bits_r) | rank_of_pair
+    if pk.key is not None:
         if with_grad_map:
-            key_sorted, eidx_sorted = torch.sort(key, stable=True)
+            key_sorted, eidx_sorted = torch.sort(pk.key, stable=True)
         else:
-            key_sorted = torch.sort(key).values
+            key_sorted = torch.sort(pk.key).values
         tile_sorted = key_sorted >> bits_r
         rank_sorted = key_sorted & ((1 << bits_r) - 1)
         starts = torch.searchsorted(
             key_sorted, tile_ids << bits_r, right=False, out_int32=True
         )
     else:  # 2^23-scale scenes on huge tile grids: stable two-array sort
-        tile_sorted, eidx_sorted = torch.sort(tile, stable=True)
-        rank_sorted = rank_of_pair[eidx_sorted]
+        tile_sorted, eidx_sorted = torch.sort(pk.tile, stable=True)
+        rank_sorted = pk.rank[eidx_sorted]
         starts = torch.searchsorted(tile_sorted, tile_ids, right=False, out_int32=True)
     # pair → payload column: storage index (through ``order``) so the
     # compositor reads the unsorted field matrix directly.
@@ -534,6 +422,7 @@ def bin_splats(
         # descriptor exactly.  Starts equal to ``budget`` (tiles past the
         # last pair) land in one extra slot that is cut off again.
         sb_long = sb.long()
+        pair_idx = torch.arange(budget, dtype=i32, device=dev)
 
         def seg_desc(values):
             m = torch.zeros((budget + 1,), dtype=i32, device=dev)
@@ -552,7 +441,7 @@ def bin_splats(
         dest_of_exp = torch.empty((budget,), dtype=i32, device=dev)
         dest_of_exp[eidx_sorted] = dest
         # Depth rank of each expansion pair (−1 beyond the real pair count).
-        exp_rank = torch.where(pair_valid, s_safe.to(i32), -1)
+        exp_rank = pk.exp_rank
 
     dropped = torch.clamp(cum_last - budget, min=0) + torch.sum(
         raw_count - tile_count, dtype=i32

@@ -37,13 +37,15 @@ NVCC_FLAGS = (
 # (α ≥ 1/255, q² ≤ 4), so the compiler must not contract a*b+c into an FMA;
 # its backward recomputes the same α and has to land on the same side.  The
 # projection's forward is held bit for bit against a chain of separately
-# rounded ATen ops, its backward against the same chain's analytic VJP.  The
+# rounded ATen ops, its backward against the same chain's analytic VJP, and
+# so is the frame glue's float math (the exact-coverage cull).  The
 # probes keep nvcc's defaults: their FMA chain is meant to contract, and their
 # separately rounded chain is written with intrinsics that never do.
 EXTRA_FLAGS = {
     "composite_fwd": ("-fmad=false",),
     "composite_bwd": ("-fmad=false",),
     "projection": ("-fmad=false",),
+    "frame_glue": ("-fmad=false",),
     "segsum": (),
     "scan": (),
     "probes": (),

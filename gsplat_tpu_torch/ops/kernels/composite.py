@@ -68,7 +68,7 @@ import torch
 from ...utils.config import RenderConfig
 from ..covariance import ALPHA_CUTOFF, QUAD_EXTENT
 from ..rasterize_ref import round_bf16
-from . import _build
+from . import _build, register
 
 TILE = 32          # the kernel's pixel tile is TILE×TILE
 P_ROWS = 10        # payload rows: cx cy ax ay bx by r g b op
@@ -94,6 +94,12 @@ launches_strided = 0
 launches_bwd = 0
 launches_bwd_depth = 0
 launches_bwd_strided = 0
+register("composite_fwd", __name__, "launches", kernel="composite_fwd_kernel")
+for _mode in ("checkpoint", "depth", "wire", "strided"):
+    register(f"composite_fwd_{_mode}", __name__, f"launches_{_mode}")
+register("composite_bwd", __name__, "launches_bwd", kernel="composite_bwd_kernel")
+for _mode in ("depth", "strided"):
+    register(f"composite_bwd_{_mode}", __name__, f"launches_bwd_{_mode}")
 
 # The forward kernel's modes (csrc/composite_fwd.cu).
 MODE_BEAUTY, MODE_DEPTH, MODE_WIRE = 0, 1, 2

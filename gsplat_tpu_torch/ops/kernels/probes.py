@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, register
 
 ALU_VARIANTS = ("fma", "mul_add", "expf")
 GATHER_ACCESSES = ("contiguous", "column", "row", "column_write")
@@ -38,6 +38,8 @@ FMA_B = 0.0000001
 
 # Wrapper calls that launched a kernel, by ALU variant and gather access.
 launches = {name: 0 for name in ALU_VARIANTS + GATHER_ACCESSES}
+register("alu_probe", __name__, "launches", keys=ALU_VARIANTS)
+register("gather_probe", __name__, "launches", keys=GATHER_ACCESSES)
 
 _lib = None
 

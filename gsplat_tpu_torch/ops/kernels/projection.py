@@ -67,13 +67,22 @@ from ..covariance import (
     QUAD_EXTENT,
 )
 from ..sh import SH_C1, SH_C2, SH_C3, max0
-from . import _build
+from . import _build, register
 
 N_FIELDS = 16
 
 # Wrapper calls that launched each kernel.
 launches_fwd = 0
 launches_bwd = 0
+# Those forward launches that also sanitized and quantized the fields.
+launches_fwd_payload = 0
+register("project_fwd", __name__, "launches_fwd", kernel="project_fwd_kernel")
+register("project_fwd_payload", __name__, "launches_fwd_payload")
+register("project_bwd", __name__, "launches_bwd", kernel="project_bwd_kernel")
+
+# project_fwd's payload policies (csrc/projection.cu): none (the raw fields),
+# or sanitized and rounded to the payload dtype.
+PAYLOAD_CODE = {None: 0, "float32": 1, "packed": 2, "bfloat16": 3}
 
 _lib = None
 
@@ -82,11 +91,11 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load("projection")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gsplat_project_fwd.argtypes = [p, p, p, p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.gsplat_project_fwd.argtypes = [p, p, p, p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i, i, p]
         lib.gsplat_project_fwd.restype = i
         lib.gsplat_project_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                           p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i, p]
+                                           p, p, p, p, p, p, ll, ll, ll, i, i, i, i, i, i, p]
         lib.gsplat_project_bwd.restype = i
         _lib = lib
     return _lib
@@ -565,16 +574,22 @@ def _axes_vjp(t, g, tight_footprint):
 
 
 def project_fields_bwd_plain(pos, orient, scale, opacity, color, sh, view, proj, cam_pos, width, height,
-                             sh_order, tight_footprint, only_sh, grad):
+                             sh_order, tight_footprint, only_sh, grad, masked=False):
     """Plain PyTorch version of the backward kernel: the analytic VJP of
     :func:`project_fields_plain` for the ``(16, N)`` cotangent ``grad``, in
     the kernel's order.  Returns ``(d_pos, d_orient, d_scale, d_opacity,
     d_color, d_sh)``; ``d_color`` is None with ``only_sh`` and ``d_sh`` None
     at ``sh_order`` 0 (the forward does not read them).  ``d_opacity`` is a
     view of row 9 of ``grad``, and ``d_color`` at ``sh_order`` 0 a view of
-    rows 6..8: the forward passes those through unchanged."""
+    rows 6..8: the forward passes those through unchanged.
+
+    ``masked``: ``grad`` is the cotangent of the sanitized fields (the
+    forward's payload form), and sanitize's VJP zeroes an invalid splat's
+    column of it first."""
     _, t = _project(pos, orient, scale, opacity, color, sh, view, proj, cam_pos, width, height,
                     sh_order, tight_footprint, only_sh)
+    if masked:
+        grad = torch.where(t.valid, grad, 0.0)
     g = grad.unbind(0)
     zero = torch.zeros_like(opacity)
 
@@ -718,18 +733,47 @@ def _check(tensors, view, proj, cam_pos, sh_order):
     return n
 
 
+def payload_fields_plain(fields: torch.Tensor, payload_dtype: str) -> torch.Tensor:
+    """Plain PyTorch version of ``project_fwd``'s payload policy:
+    ``sanitize_projected`` then ``quantize_payload`` (``ops/rasterize_ref.py``)
+    of a ``(16, N)`` field matrix."""
+    # imported here: ops/rasterize_ref.py imports ops/projection.py, which
+    # imports this module
+    from ...utils.config import RenderConfig
+    from ..projection import ProjectedSplats
+    from ..rasterize_ref import quantize_payload, sanitize_projected
+
+    p = sanitize_projected(ProjectedSplats(fields=fields))
+    return quantize_payload(p, RenderConfig(payload_dtype=payload_dtype)).fields
+
+
 def project_fields(pos, orient, scale, opacity, color, sh, view, proj, cam_pos, width, height,
-                   sh_order=3, tight_footprint=False, only_sh=False) -> torch.Tensor:
+                   sh_order=3, tight_footprint=False, only_sh=False, payload_dtype=None) -> torch.Tensor:
     """The ``(16, N)`` field matrix (``ops/projection.py``'s rows).
 
+    ``payload_dtype`` (``"float32"``, ``"packed"`` or ``"bfloat16"``): the fields
+    come back sanitized (an invalid column holds ``_BENIGN``'s values, its
+    depth +inf) and quantized to that payload precision, as
+    :func:`payload_fields_plain` makes them (:class:`ProjectSplats`
+    differentiates them).
+    On the card this form is splat-major in memory (the transposed view of
+    an ``(N, 16)`` matrix: a column's 16 words are contiguous), the layout
+    ``gather_payload`` reads fastest.
+
     On CUDA tensors this launches ``project_fwd`` (or raises); on CPU tensors
-    it takes :func:`project_fields_plain`."""
-    global launches_fwd
+    it takes :func:`project_fields_plain` (and :func:`payload_fields_plain`)."""
+    global launches_fwd, launches_fwd_payload
+    if payload_dtype not in PAYLOAD_CODE:
+        raise ValueError(f"payload_dtype must be one of {tuple(PAYLOAD_CODE)}, got {payload_dtype!r}")
     inputs = (pos, orient, scale, opacity, color, sh)
     n = _check(inputs, view, proj, cam_pos, sh_order)
     if not pos.is_cuda:
-        return project_fields_plain(*inputs, view, proj, cam_pos, width, height, sh_order, tight_footprint, only_sh)
-    out = torch.empty((N_FIELDS, n), dtype=torch.float32, device=pos.device)
+        out = project_fields_plain(*inputs, view, proj, cam_pos, width, height, sh_order, tight_footprint, only_sh)
+        return out if payload_dtype is None else payload_fields_plain(out, payload_dtype)
+    if payload_dtype is None:
+        out = torch.empty((N_FIELDS, n), dtype=torch.float32, device=pos.device)
+    else:
+        out = torch.empty((n, N_FIELDS), dtype=torch.float32, device=pos.device).T
     if n == 0:
         return out
     args = [t.contiguous() for t in inputs + (view, proj, cam_pos)]
@@ -737,19 +781,24 @@ def project_fields(pos, orient, scale, opacity, color, sh, view, proj, cam_pos, 
     with torch.cuda.device(pos.device):
         err = lib.gsplat_project_fwd(
             *[t.data_ptr() for t in args], out.data_ptr(), n, int(width), int(height), int(sh_order),
-            int(bool(tight_footprint)), int(bool(only_sh)), torch.cuda.current_stream().cuda_stream,
+            int(bool(tight_footprint)), int(bool(only_sh)), PAYLOAD_CODE[payload_dtype],
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"gsplat_project_fwd launch failed: CUDA error {err}")
     launches_fwd += 1
+    launches_fwd_payload += int(payload_dtype is not None)
     return out
 
 
 def project_fields_bwd(pos, orient, scale, opacity, color, sh, view, proj, cam_pos, width, height,
-                       sh_order, tight_footprint, only_sh, grad):
+                       sh_order, tight_footprint, only_sh, grad, masked=False):
     """The six input gradients for the ``(16, N)`` cotangent ``grad``
     (:func:`project_fields_bwd_plain`'s outputs: the opacity's, and the
-    colour's at ``sh_order`` 0, are views of ``grad``'s rows).
+    colour's at ``sh_order`` 0, are views of ``grad``'s rows, but with
+    ``masked``).  ``masked``: ``grad`` is the cotangent of the sanitized
+    fields, zeroed in an invalid splat's column (sanitize's VJP); the kernel
+    then also reads it splat-major, as ``scatter_payload`` writes it.
 
     On CUDA tensors this launches ``project_bwd`` (or raises); on CPU tensors
     it takes :func:`project_fields_bwd_plain`."""
@@ -761,26 +810,29 @@ def project_fields_bwd(pos, orient, scale, opacity, color, sh, view, proj, cam_p
                         f"{tuple(grad.shape)} {grad.dtype} on {grad.device}")
     if not pos.is_cuda:
         return project_fields_bwd_plain(*inputs, view, proj, cam_pos, width, height, sh_order,
-                                        tight_footprint, only_sh, grad)
-    grad = grad.contiguous()
+                                        tight_footprint, only_sh, grad, masked)
+    if not (masked and grad.stride() == (1, N_FIELDS)):
+        grad = grad.contiguous()
 
     def new(rows):  # row-major whatever the strides of the input it matches
         return torch.empty((rows, n), dtype=torch.float32, device=pos.device)
 
-    d_color = None if only_sh else new(3) if sh_order > 0 else grad[6:9]
+    d_color = None if only_sh else new(3) if sh_order > 0 or masked else grad[6:9]
     d_sh = new(45) if sh_order > 0 else None
-    outs = (new(3), new(4), new(3), grad[9], d_color, d_sh)
+    d_opacity = new(1)[0] if masked else grad[9]
+    outs = (new(3), new(4), new(3), d_opacity, d_color, d_sh)
     if n == 0:
         return outs
-    written = [o.data_ptr() for o in outs[:3]] + [o.data_ptr() if o is not None and sh_order > 0 else None
-                                                  for o in outs[4:]]
+    written = [o.data_ptr() for o in outs[:3]] + [
+        None if o is None or (k == 0 and sh_order == 0 and not masked) else o.data_ptr()
+        for k, o in enumerate(outs[4:])] + [d_opacity.data_ptr() if masked else None]
     args = [t.contiguous() for t in inputs + (view, proj, cam_pos)] + [grad]
     lib = _library()
     with torch.cuda.device(pos.device):
         err = lib.gsplat_project_bwd(
-            *[t.data_ptr() for t in args], *written, n,
+            *[t.data_ptr() for t in args], *written, n, grad.stride(0), grad.stride(1),
             int(width), int(height), int(sh_order), int(bool(tight_footprint)), int(bool(only_sh)),
-            torch.cuda.current_stream().cuda_stream,
+            int(bool(masked)), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"gsplat_project_bwd launch failed: CUDA error {err}")
@@ -793,19 +845,26 @@ class ProjectSplats(torch.autograd.Function):
     through their plain versions, the same structure up to the launch).
     Autograd saves only the inputs: the backward recomputes the forward's
     intermediates.  Gradients flow to the six splat fields; the camera takes
-    none."""
+    none.  With a ``payload_dtype`` the forward writes the sanitized,
+    quantized fields (:func:`project_fields`), and the backward is
+    sanitize's VJP (an invalid column's cotangent zeroed, the ``masked``
+    form of :func:`project_fields_bwd`) after quantize's, the identity."""
 
     @staticmethod
     def forward(ctx, pos, orient, scale, opacity, color, sh, view, proj, cam_pos, width, height,
-                sh_order, tight_footprint, only_sh):
+                sh_order, tight_footprint, only_sh, payload_dtype=None):
         ctx.static = (width, height, sh_order, tight_footprint, only_sh)
+        ctx.masked = payload_dtype is not None
         ctx.save_for_backward(pos, orient, scale, opacity, color, sh, view, proj, cam_pos)
-        return project_fields(pos, orient, scale, opacity, color, sh, view, proj, cam_pos, *ctx.static)
+        return project_fields(pos, orient, scale, opacity, color, sh, view, proj, cam_pos, *ctx.static,
+                              payload_dtype=payload_dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        grads = project_fields_bwd(*saved, *ctx.static, g.to(torch.float32).contiguous())
-        return (*grads, None, None, None, None, None, None, None, None)
+        g = g.to(torch.float32)
+        # the payload form's cotangent may come splat-major (scatter_payload)
+        grads = project_fields_bwd(*saved, *ctx.static, g if ctx.masked else g.contiguous(), masked=ctx.masked)
+        return (*grads, None, None, None, None, None, None, None, None, None)
 

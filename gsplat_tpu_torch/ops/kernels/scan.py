@@ -55,7 +55,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, register
 
 KINDS = ("add", "max")
 # Elements a tile of the kernel (1024 threads x 8), which sizes the scratch.
@@ -66,6 +66,9 @@ TILE = 8192
 launches = 0
 # The same count, split by kind.
 launches_by_kind = {"add": 0, "max": 0}
+register("scan_i32", __name__, "launches", kernel="scan_kernel")
+register("scan_i32_add", __name__, "launches_by_kind", keys=("add",))
+register("scan_i32_max", __name__, "launches_by_kind", keys=("max",))
 
 _KIND_CODE = {"add": 0, "max": 1}
 

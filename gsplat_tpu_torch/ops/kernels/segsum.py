@@ -34,11 +34,12 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, register
 from .composite import G_ROWS_PACKED, N_SUMS, unpack2
 
 # Wrapper calls that launched the kernel.
 launches = 0
+register("segsum", __name__, "launches", kernel="segsum_kernel")
 
 _lib = None
 

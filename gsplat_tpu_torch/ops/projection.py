@@ -93,6 +93,7 @@ def project_splats(
     sh_order: int = 3,
     tight_footprint: bool = False,
     only_sh: bool = False,
+    payload_dtype: str = None,
 ) -> ProjectedSplats:
     """Project all splats for one camera (on the splats' device).
 
@@ -105,6 +106,11 @@ def project_splats(
     fragment discard ``α ≥ 1/255``, so with the hard cutoff the image is
     unchanged while low-opacity splats touch far fewer tiles.  Keep False for
     ``soft_cutoff`` rendering, where faint tails still contribute.
+
+    ``payload_dtype`` (``RenderConfig.payload_dtype``): the fields come back
+    sanitized and quantized (``sanitize_projected`` then ``quantize_payload``
+    of ``ops/rasterize_ref.py``) by the same kernel launch, and the gradient
+    goes back through both (the kernel path's frame takes this form).
     """
     f32 = torch.float32
     cam = (camera.view.to(f32), camera.proj.to(f32), camera.position.to(f32))
@@ -113,5 +119,5 @@ def project_splats(
     return ProjectedSplats(fields=ProjectSplats.apply(
         splats.pos.to(f32), splats.orient.to(f32), splats.scale.to(f32), splats.opacity.to(f32),
         splats.color.to(f32), splats.sh.to(f32), *cam, int(camera.width), int(camera.height),
-        int(sh_order), bool(tight_footprint), bool(only_sh),
+        int(sh_order), bool(tight_footprint), bool(only_sh), payload_dtype,
     ))

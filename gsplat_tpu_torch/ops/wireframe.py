@@ -24,7 +24,7 @@ from ..models.camera import Camera
 from ..models.splats import GaussianSplats
 from ..utils.config import RenderConfig
 from .covariance import QUAD_EXTENT
-from .projection import ROW_HX, ROW_HY, ROW_OP, ROW_VALID, ProjectedSplats, project_splats
+from .projection import ROW_DEPTH, ROW_HX, ROW_HY, ROW_OP, ROW_VALID, ProjectedSplats, project_splats
 from .rasterize_ref import sanitize_projected
 from .rasterize_tiles import sort_by_depth
 
@@ -83,25 +83,24 @@ def render_wireframe(
 
 
 def _wireframe_projected(splats, camera, line_px) -> ProjectedSplats:
-    """The depth-sorted fields the wireframe pass bins and composites."""
-    p = sanitize_projected(project_splats(splats, camera, 0))
-    f = p.fields
-    # The reference draws wireframes regardless of opacity and the band
-    # extends ``line_px`` past the ±2 quad: neutralise the opacity cull and
-    # grow the binning bbox by the line width.
-    f = torch.cat(
-        [f[:ROW_OP], f[ROW_VALID : ROW_VALID + 1], f[ROW_OP + 1 : ROW_HX],
-         f[ROW_HX : ROW_HY + 1] + line_px, f[ROW_HY + 1 :]],
-        dim=0,
-    )
-    return sort_by_depth(ProjectedSplats(fields=f))
+    """The sanitized fields the wireframe pass bins and composites, in
+    storage order (the image carries no gradient: the band test has none)."""
+    with torch.no_grad():
+        f = project_splats(splats, camera, 0, payload_dtype="float32").fields
+        # The reference draws wireframes regardless of opacity and the band
+        # extends ``line_px`` past the ±2 quad: neutralise the opacity cull
+        # and grow the binning bbox by the line width (in place: the fields
+        # keep the projection's layout, which the gather reads fastest).
+        f[ROW_OP] = f[ROW_VALID]
+        f[ROW_HX : ROW_HY + 1] += line_px
+    return ProjectedSplats(fields=f)
 
 
 def _wireframe_inputs(splats, camera, config, line_px):
     """The compositor's arguments of the wireframe pass: ``(args, binned)``
     with ``args`` = (payload, pair_splat, tile_base, tile_phi, tile_span,
     nty, ntx, height, width, config)."""
-    from .binning import bin_splats, tile_grid
+    from .binning import bin_splats, gather_frame, tile_grid
 
     if config.tile_h != 32 or config.tile_w != 32:
         raise ValueError("the cuda backend requires tile_h == tile_w == 32")
@@ -112,11 +111,13 @@ def _wireframe_inputs(splats, camera, config, line_px):
     cfg = dataclasses.replace(
         config, wireframe=True, line_px=float(line_px), payload_dtype="float32", depth_test=False,
     )
-    p = _wireframe_projected(splats, camera, line_px)
+    f = _wireframe_projected(splats, camera, line_px).fields
+    # the payload and the binning operands in depth order, in one gather;
     # binning skips the exact-coverage cull in wireframe mode
-    binned = bin_splats(p, camera.width, camera.height, cfg, with_tiles=False, with_grad_map=False)
+    glue = gather_frame(f, torch.argsort(f[ROW_DEPTH], stable=True), camera.width, camera.height, cfg)
+    binned = bin_splats(None, camera.width, camera.height, cfg, with_tiles=False, operands=glue.operands)
     nty, ntx = tile_grid(camera.width, camera.height, cfg.tile_h, cfg.tile_w)
-    args = (p.fields[:10].contiguous(), binned.pair_splat, binned.tile_base, binned.tile_phi,
+    args = (glue.payload, binned.pair_splat, binned.tile_base, binned.tile_phi,
             binned.tile_span, nty, ntx, camera.height, camera.width, cfg)
     return args, binned
 

@@ -4,8 +4,10 @@
 tile binning → compositing, on the device the splats live on.
 
 Backends:
-  * ``"cuda"``     — the main path: the prefix scans of the binning and the
-    compositing go through the kernel wrappers (``ops/kernels``).  On CUDA
+  * ``"cuda"``     — the main path: the projection, the frame's glue (the
+    depth-order gather of the payload, the binning's marks and pair
+    expansion), the prefix scans of the binning and the compositing go
+    through the kernel wrappers (``ops/kernels``).  On CUDA
     tensors the wrappers launch the hand-written kernels; on CPU tensors they
     take their plain PyTorch versions, so a CPU run walks the same code up to
     the launch.  Differentiable: when gradients are enabled and a splat
@@ -37,38 +39,29 @@ from .ops.binning import (
     RenderStats,
     bin_splats,
     count_pairs,
+    gather_frame,
     tile_grid,
     warn_if_dropped,
 )
 from .ops.kernels.composite import composite_splats, composite_splats_diff, pack_payload
-from .ops.projection import ROW_VIEWZ, project_splats
-from .ops.rasterize_ref import quantize_payload, render_reference, sanitize_projected
-from .ops.rasterize_tiles import (
-    build_tile_lists,
-    composite_tile_lists,
-    permute_fields,
-    render_tiles,
-    sort_by_depth,
-)
+from .ops.projection import ROW_DEPTH, project_splats
+from .ops.rasterize_ref import render_reference, sanitize_projected
+from .ops.rasterize_tiles import build_tile_lists, composite_tile_lists, render_tiles
 from .utils.config import RenderConfig
 
 
-def _composite_cuda(p, binned, nty, ntx, height, width, config, need_grad, bg_depth=None, offsets=(0, 0)):
-    """The kernel path's compositing of binned pairs: the differentiable
-    ``CompositeSplats`` when a gradient is needed, else one forward launch on
-    the payload (packed into 8 int32 rows for ``payload_dtype="packed"``)."""
-    if config.depth_test:
-        # payload row 10 = the view-z row
-        rows = torch.cat([p.fields[:10], p.fields[ROW_VIEWZ : ROW_VIEWZ + 1]], dim=0)
-    else:
-        rows = p.fields[:10]
+def _composite_cuda(p, binned, nty, ntx, height, width, config, need_grad, offsets=(0, 0)):
+    """A strip's compositing of binned pairs (no depth test): the
+    differentiable ``CompositeSplats`` when a gradient is needed, else one
+    forward launch on the payload (packed into 8 int32 rows for
+    ``payload_dtype="packed"``)."""
+    rows = p.fields[:10]
     if need_grad:
-        return composite_splats_diff(rows, binned, nty, ntx, height, width, config, bg_depth=bg_depth,
-                                     offsets=offsets)
+        return composite_splats_diff(rows, binned, nty, ntx, height, width, config, offsets=offsets)
     payload = pack_payload(p.fields) if config.payload_dtype == "packed" else rows.contiguous()
     image, _used = composite_splats(
         payload, binned.pair_splat, binned.tile_base, binned.tile_phi, binned.tile_span,
-        nty, ntx, height, width, config, bg_depth=bg_depth, offsets=offsets,
+        nty, ntx, height, width, config, offsets=offsets,
     )
     return image
 
@@ -100,20 +93,30 @@ def render_cuda(
             image = image + sum(t.sum() for t in leaves if t.requires_grad) * 0.0
         zero = torch.zeros((), dtype=torch.int32, device=splats.device)
         return (image, RenderStats(dropped_pairs=zero)) if with_stats else image
-    projected = project_splats(
-        splats, camera, config.sh_order,
-        tight_footprint=not config.soft_cutoff, only_sh=config.only_sh,
-    )
-    p = quantize_payload(sanitize_projected(projected), config)
-    # Fields are permuted into depth order here, and the binning then works
-    # purely in rank space: within a tile's segment the payload columns the
-    # compositor reads are then nearly ascending.  The depth test keeps the
-    # view-z row (row 14) too.
-    n_rows = 15 if config.depth_test else 14
-    p = sort_by_depth(p, n_rows) if order is None else permute_fields(p, order, n_rows)
-    binned = bin_splats(p, width, height, config, with_tiles=False, with_grad_map=need_grad)
     nty, ntx = tile_grid(width, height, config.tile_h, config.tile_w)
-    image = _composite_cuda(p, binned, nty, ntx, height, width, config, need_grad, bg_depth=bg_depth)
+    # The projection writes sanitized, quantized fields; one gather writes
+    # the payload and the binning's operands in depth order (the binning
+    # then works purely in rank space, and within a tile's segment the
+    # payload columns the compositor reads are nearly ascending); the
+    # pairs' expansion and key are one kernel.  With a gradient the payload
+    # is the float32 rows, the gather's backward the inverse gather and the
+    # projection's backward takes sanitize's VJP.
+    fields = project_splats(
+        splats, camera, config.sh_order, tight_footprint=not config.soft_cutoff,
+        only_sh=config.only_sh, payload_dtype=config.payload_dtype,
+    ).fields
+    if order is None:
+        order = torch.argsort(fields[ROW_DEPTH].detach(), stable=True)
+    glue = gather_frame(fields, order, width, height, config, differentiable=need_grad)
+    binned = bin_splats(None, width, height, config, with_tiles=False, with_grad_map=need_grad,
+                        operands=glue.operands)
+    if need_grad:
+        image = composite_splats_diff(glue.payload, binned, nty, ntx, height, width, config, bg_depth=bg_depth)
+    else:
+        image, _used = composite_splats(
+            glue.payload, binned.pair_splat, binned.tile_base, binned.tile_phi, binned.tile_span,
+            nty, ntx, height, width, config, bg_depth=bg_depth,
+        )
     # After the last launch is queued: the only host read of the frame, kept
     # for direct callers.  SceneRegistry renders with warn_on_drop=False and
     # reports the returned stats at its next frame, so that its frames make

@@ -145,7 +145,7 @@ def bytes_bound(nbytes: float, device: dict = H100) -> dict:
 
 
 def projection_bytes(n: int, sh_order: int = 3, backward: bool = False, only_sh: bool = False,
-                     tight_footprint: bool = False) -> int:
+                     tight_footprint: bool = False, masked: bool = False) -> int:
     """Bytes the projection kernels (``csrc/projection.cu``) must move for
     ``n`` splats, each input read once and each output written once.  The
     forward reads pos, orient, scale and opacity (44 B a splat), the colour
@@ -160,7 +160,10 @@ def projection_bytes(n: int, sh_order: int = 3, backward: bool = False, only_sh:
     ``sh_order`` > 0, of the colour and all 45 SH rows.  The opacity's
     gradient is cotangent row 9, and the colour's at ``sh_order`` 0 rows
     6..8, handed back as views: no bytes.  516 B at ``sh_order`` 3 (520 with
-    ``tight_footprint``), 120 at 0."""
+    ``tight_footprint``), 120 at 0.  ``masked`` (the backward of the
+    sanitized fields): the kernel also reads row 9 and writes the opacity's
+    gradient (8 B), and at ``sh_order`` 0 rows 6..8 and the colour's (24 B,
+    not with ``only_sh``)."""
     sh_read = 4 * (0, 9, 24, 45)[sh_order]
     if not backward:
         return n * (44 + (0 if only_sh else 12) + sh_read + 4 * FIELD_ROWS)
@@ -168,6 +171,9 @@ def projection_bytes(n: int, sh_order: int = 3, backward: bool = False, only_sh:
     cot_rows = 10 + (3 if sh_order > 0 else 0)
     reads = 40 + (4 if tight_footprint else 0) + color + sh_read + 4 * cot_rows
     writes = 40 + color + (180 if sh_order > 0 else 0)
+    if masked:
+        passed = 4 + (12 if sh_order == 0 and not only_sh else 0)
+        reads, writes = reads + passed, writes + passed
     return n * (reads + writes)
 
 

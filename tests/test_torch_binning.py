@@ -49,9 +49,21 @@ def _bin_both(cfg_kw, scene_kw, with_tiles=True):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_bin_splats_integer_arrays_exactly_equal(case):
+def test_bin_splats_integer_arrays_exactly_equal(case, monkeypatch):
     cfg_kw, scene_kw = CASES[case]
     f, jc, jcfg, jb, tb = _bin_both(cfg_kw, scene_kw)
+    if case == "default":
+        # GSPLAT_SAT_MAX_N = 0 in both packages: no SAT cull, and still the
+        # same pairs in both (the port reads the variable as the JAX
+        # package does)
+        assert tbin._SAT_CULL_MAX_N == jbin._SAT_CULL_MAX_N
+        monkeypatch.setattr(jbin, "_SAT_CULL_MAX_N", 0)
+        monkeypatch.setattr(tbin, "_SAT_CULL_MAX_N", 0)
+        _, _, _, jb0, tb0 = _bin_both(cfg_kw, scene_kw)
+        for name in ("pair_splat", "pair_tile", "tile_count"):
+            assert np.array_equal(npy(getattr(tb0, name)), np.asarray(getattr(jb0, name))), name
+        assert not np.array_equal(npy(tb0.pair_splat), npy(tb.pair_splat))  # the cull was off
+        monkeypatch.undo()
     for name in INT_ARRAYS:
         j, t = np.asarray(getattr(jb, name)), npy(getattr(tb, name))
         assert t.dtype == np.int32, name

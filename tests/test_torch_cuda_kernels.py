@@ -574,6 +574,20 @@ def test_projection_kernels_match_plain(card):
                         assert a is None
                         continue
                     assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+                # the masked form (the payload form's backward): an invalid
+                # splat's gradient is zero, the opacity's written by the kernel
+                invalid = want[11] < 0.5
+                got = kproj.project_fields_bwd(*args, cot, masked=True)
+                assert kproj.launches_bwd == before[1] + 2
+                for a, b in zip(got, kproj.project_fields_bwd_plain(*args, cot, masked=True)):
+                    if b is None:
+                        assert a is None
+                        continue
+                    assert not bool(a[..., invalid].any())
+                    assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+                # a splat-major cotangent (as scatter_payload writes it) is read as it is
+                for a, b in zip(kproj.project_fields_bwd(*args, cot.T.contiguous().T, masked=True), got):
+                    assert (a is None and b is None) or torch.equal(a, b)
     # project_splats on CUDA tensors goes through the kernels
     before = kproj.launches_fwd
     gt.project_splats(splats, cam)
@@ -593,3 +607,149 @@ def test_projection_kernels_match_plain(card):
         grads.append({f: flip(x.grad) for f, x in leaves.items()})
     for f in fields:
         assert torch.equal(grads[0][f], grads[1][f]), f
+
+
+def _glue_scene(card, n=3000, w=200, h=120):
+    g = torch.Generator(device=card).manual_seed(n)
+    splats = gt.random_splats(g, n, extent=1.5, scale_range=(0.01, 0.1), sh_scale=0.2, device=card)
+    return splats, gt.make_camera([0.0, 0.3, 2.0], [0, 0, 0], w, h, device=card)
+
+
+GLUE_MODES = (dict(payload_dtype="packed"), dict(), dict(payload_dtype="bfloat16"), dict(depth_test=True),
+              dict(wireframe=True), dict(soft_cutoff=True), dict(row_stride=2, col_stride=3))
+
+
+def test_project_fwd_payload_form_matches_plain(card):
+    """project_fwd writing sanitized, quantized fields (the serving frame's
+    form) bit for bit against the plain sanitize and quantize of the plain
+    forward, the camera in the cloud so that half the splats are invalid."""
+    from gsplat_tpu_torch.ops.kernels import projection as kproj
+
+    splats, _ = _glue_scene(card, n=257)
+    cam = gt.make_camera([0.0, 0.0, 0.0], [0, 0, -1], 96, 64, device=card)
+    args = [getattr(splats, f) for f in ("pos", "orient", "scale", "opacity", "color", "sh")]
+    args += [cam.view, cam.proj, cam.position, 96, 64, 3, True, False]
+    raw = kproj.project_fields_plain(*args)
+    assert not bool((raw[11] > 0.5).all())
+    for payload in ("float32", "packed", "bfloat16"):
+        before = kproj.launches_fwd_payload
+        out = kproj.project_fields(*args, payload_dtype=payload)
+        assert kproj.launches_fwd_payload == before + 1
+        want = kproj.payload_fields_plain(raw, payload)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32)), payload
+
+
+def test_gather_payload_matches_plain(card):
+    """gather_payload's payload and binning operands bit for bit against its
+    plain version in every payload layout and binning mode."""
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.ops.kernels import frame_glue as kglue
+
+    splats, cam = _glue_scene(card)
+    for kw in GLUE_MODES:
+        cfg = gt.RenderConfig(**kw)
+        offsets = (1, 2) if cfg.row_stride != 1 else (0, 0)
+        fields = gt.project_splats(splats, cam, tight_footprint=not cfg.soft_cutoff,
+                                   payload_dtype=cfg.payload_dtype).fields
+        order = torch.argsort(fields[10], stable=True)
+        _, rho_ok = binning.sat_flags(splats.count, cam.width, cam.height, cfg)
+        before = kglue.launches_gather
+        got = kglue.gather_payload(fields, order, cam.width, cam.height, cfg, rho_ok, *offsets)
+        assert kglue.launches_gather == before + 1
+        want = kglue.gather_payload_plain(fields, order, cam.width, cam.height, cfg, rho_ok, *offsets)
+        assert torch.equal(got.payload.view(torch.int32), want.payload.view(torch.int32)), kw
+        for name in ("counts", "nx", "tile0", "thr_q"):
+            a, b = getattr(got.operands, name), getattr(want.operands, name)
+            assert (a is None and b is None) or torch.equal(a, b), (kw, name)
+
+
+def test_scatter_payload_matches_plain(card):
+    """scatter_payload (the gather's gradient) bit for bit against its plain
+    version, for the float32 rows with and without the view-z row, and
+    GatherPayload's backward on the card equal to it."""
+    from gsplat_tpu_torch.ops.kernels import frame_glue as kglue
+
+    splats, cam = _glue_scene(card)
+    cfg = gt.RenderConfig(payload_dtype="packed")
+    fields = gt.project_splats(splats, cam, tight_footprint=True, payload_dtype="packed").fields
+    order = torch.argsort(fields[10], stable=True)
+    g = torch.Generator(device=card).manual_seed(9)
+    for rows in (10, 11):
+        d_payload = torch.randn((rows, splats.count), generator=g, device=card)
+        before = kglue.launches_scatter
+        got = kglue.scatter_payload(d_payload, order)
+        assert kglue.launches_scatter == before + 1
+        assert torch.equal(got.view(torch.int32), kglue.scatter_payload_plain(d_payload, order).view(torch.int32))
+    leaf = fields.detach().clone().requires_grad_(True)  # clone keeps the splat-major layout
+    glue = kglue.gather_payload_diff(leaf, order, cam.width, cam.height, cfg, False)
+    want = kglue.gather_payload_plain(fields, order, cam.width, cam.height, cfg, False, float_rows=True)
+    assert torch.equal(glue.payload.detach().view(torch.int32), want.payload.view(torch.int32))
+    glue.payload.backward(d_payload[:10])
+    assert torch.equal(leaf.grad, kglue.scatter_payload_plain(d_payload[:10], order))
+
+
+def test_mark_owners_matches_plain(card):
+    """mark_owners' offsets and marks bit for bit against its plain version
+    (the atomic max is the same in any order), at a budget that holds every
+    pair, one that drops half of them and one slot."""
+    from gsplat_tpu_torch.ops.kernels import frame_glue as kglue
+
+    splats, cam = _glue_scene(card)
+    cfg = gt.RenderConfig()
+    fields = gt.project_splats(splats, cam, tight_footprint=True, payload_dtype="float32").fields
+    ops = kglue.gather_payload(fields, torch.argsort(fields[10], stable=True), cam.width, cam.height, cfg,
+                               False).operands
+    cum = torch.cumsum(ops.counts, 0, dtype=torch.int32)
+    for budget in (cfg.pair_budget(splats.count), max(1, int(cum[-1]) // 2), 1):
+        before = kglue.launches_marks
+        got = kglue.mark_owners(cum, ops.counts, budget)
+        assert kglue.launches_marks == before + 1
+        for a, b in zip(got, kglue.mark_owners_plain(cum, ops.counts, budget)):
+            assert torch.equal(a, b), budget
+
+
+def test_expand_pairs_matches_plain(card, monkeypatch):
+    """expand_pairs bit for bit against its plain version: the SAT cull on
+    and off, a budget that drops pairs, a (tile, rank) key too wide for 31
+    bits, the gradient map's ranks, and bin_splats through the kernel equal
+    to bin_splats through the plain version in the order= form."""
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.ops.kernels import frame_glue as kglue
+
+    splats, cam = _glue_scene(card)
+    n = splats.count
+    nty, ntx = binning.tile_grid(cam.width, cam.height, 32, 32)
+    for kw in GLUE_MODES:
+        cfg = gt.RenderConfig(**kw)
+        offsets = (1, 2) if cfg.row_stride != 1 else (0, 0)
+        fields = gt.project_splats(splats, cam, tight_footprint=not cfg.soft_cutoff,
+                                   payload_dtype=cfg.payload_dtype).fields
+        order = torch.argsort(fields[10], stable=True)
+        sat_cull, rho_ok = binning.sat_flags(n, cam.width, cam.height, cfg)
+        ops = kglue.gather_payload(fields, order, cam.width, cam.height, cfg, rho_ok, *offsets).operands
+        cum = torch.cumsum(ops.counts, 0, dtype=torch.int32)
+        offs = cum - ops.counts
+        for budget in (cfg.pair_budget(n), max(1, int(cum[-1]) // 2)):
+            marks = torch.zeros((budget + 1,), dtype=torch.int32, device=card)
+            marks.scatter_reduce_(0, torch.clamp(offs, max=budget).long(),
+                                  torch.arange(1, n + 1, dtype=torch.int32, device=card), "amax")
+            smax = torch.cummax(marks[:budget], 0).values.contiguous()
+            for num_tiles in (nty * ntx, 1 << 28):
+                args = (smax, cum, offs, ops, budget, num_tiles, ntx, cfg, *offsets, sat_cull, rho_ok, True)
+                before = kglue.launches_expand
+                got = kglue.expand_pairs(*args)
+                assert kglue.launches_expand == before + 1
+                want = kglue.expand_pairs_plain(*args)
+                assert (got.key is None) == (num_tiles != nty * ntx)
+                for name in ("key", "tile", "rank", "exp_rank"):
+                    a, b = getattr(got, name), getattr(want, name)
+                    assert (a is None and b is None) or torch.equal(a, b), (kw, budget, num_tiles, name)
+    # bin_splats' order= form with the gradient map, kernel against plain
+    cfg = gt.RenderConfig()
+    p = gt.project_splats(splats, cam, tight_footprint=True, payload_dtype="float32")
+    order = torch.argsort(p.fields[10], stable=True)
+    got = binning.bin_splats(p, cam.width, cam.height, cfg, order=order, with_grad_map=True)
+    monkeypatch.setattr(kglue, "expand_pairs", kglue.expand_pairs_plain)
+    want = binning.bin_splats(p, cam.width, cam.height, cfg, order=order, with_grad_map=True)
+    for name in ("pair_splat", "pair_tile", "tile_start", "tile_count", "dest_of_exp", "exp_rank", "dropped_pairs"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
