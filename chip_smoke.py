@@ -140,6 +140,51 @@ Phases, each printing one JSON line; any failure exits non-zero:
              median_step_ms (captured) beside
              median_eager_step_ms.
   train_stages  one training step taken apart (where a step's time goes).
+  trained_path  the JAX package's trained-statistics configuration at full
+             size (bench.py --scene trained): trained_like_splats(1M,
+             extent 1.2, sh_scale 0.1, seed 0), three orbit cameras at
+             1920x1080, packed, eps 1e-3, the budget tuned at headroom 1.02,
+             tile_capacity 4096 unless a tile of those frames holds more
+             pairs, then the smallest multiple of the chunk that drops none
+             (printed).  The binning of camera 0's whole frame: the frame
+             glue and the scans on the frame's own counts and marks
+             bit-equal to their plain versions, and bin_splats through the
+             kernels bit-equal to bin_splats through the plain versions, with
+             and without the gradient map (the key form, packed or wide, and
+             whether the exact-coverage cull ran printed); the frames through
+             render(), eager and captured (each replay bit-equal to its eager
+             frame); bench.py's forward+backward (the gradient of
+             sum(render(...)[..., :3]) over the six fields) eager and
+             captured in a CUDA graph, every call and replay bit-equal to the
+             first eager one; make_train_step's captured step as train_path
+             runs it (losses and parameters bit-equal to the eager four
+             lines); dropped_pairs 0 in every frame, gradient and step, the
+             launch counters zeroed before and read after each part against
+             the expected counts; then every kernel the path launched held
+             to its plain version at the path's inputs (the thresholds of
+             scripts/verify_tpu.py:111-115 or tighter: images within 1e-5 and
+             bit-equal stop counters, the backward's rows within 1e-5 of each
+             row's max, the segment sum's within 2e-4 of each row's max
+             and 2-norm (its plain version adds with atomics), project_bwd within
+             1e-6 of each field's max and 2e-4 in the 2-norm, the frame glue
+             and the scans bit-equal), the plain versions on the whole frame,
+             the backward and the segment sum on the gradient frame's image
+             cotangent; their rows (names ending in @trained) on the kernels
+             line.  Prints splats, size, capacity, chunk, budget, each
+             camera's pairs, dropped_pairs, the medians (frame, gradient,
+             step, eager and captured), the losses, peak memory, graph pool
+             bytes, launches and the phase's seconds.
+  envelope_path  the reference's 2^23 budget envelope (bench.py:30-43):
+             8,388,608 splats of the main path's scene, tile_capacity 16384
+             (raised as above to the smallest multiple of 256 that drops
+             none, printed), chunk 256 (the backward at 210 KB of shared
+             memory, one block an SM); the same checks and numbers as
+             trained_path but the step (the binning takes the wide
+             (tile, rank) key and skips the exact-coverage cull above
+             GSPLAT_SAT_MAX_N), and bench.py's wireframe frame
+             (render_wireframe, float32 payload, the untuned budget; its
+             dropped_pairs printed, its band test held to the plain version;
+             rows ending in @envelope).
   host_scene_path  the same scene composited into a host scene: float32
              payload, the depth test against a slanted plane of view depth
              2.0 -> 3.5 and an opaque grey scene colour; five frames, a check
@@ -203,7 +248,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              scatter_reduce_'s times beside the gather and the marks.
              The scan, forward, projection and glue rows' launches are the
              main path's and the scene path's registry frames
-             (launches_by_path).
+             (launches_by_path).  The rows of trained_path and envelope_path
+             come after them, their bounds priced at this run's rates here.
 
 --profile also traces three frames and three training steps, eager and
 replayed from their graphs, and prints each one's device_busy_share.
@@ -272,6 +318,12 @@ GRAD_ROW_TOL = 1e-5
 # Segment sum against its plain version, per row: a splat's few pairs added in
 # another order.
 SEGSUM_TOL = 1e-6
+# The large configurations' segment sums (trained_path, envelope_path) are
+# held at the on-chip gate's gradient threshold (GRAD_TOL) of each row's max
+# and in its 2-norm: a splat there has up to hundreds of pairs, and the plain
+# version adds them with index_add_'s atomics, whose order changes from run
+# to run (on the trained scene the kernel's worst row read 8.1e-7 and
+# 1.02e-6 of the row's max against two plain runs on the same inputs).
 # Whole-render gradients against autograd through the plain tiled renderer
 # (the thresholds of the JAX package's on-chip gate): relative to
 # max(1, |g|max) of the field.  The sharded paths hold their gradients to the
@@ -408,6 +460,23 @@ def expect_counts(**launched):
     return want
 
 
+def frame_counts(frames):
+    """The launch counts of `frames` serving frames (phase_main_path's)."""
+    return expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames, composite_fwd=frames,
+                         project_fwd=frames, project_fwd_payload=frames, gather_payload=frames,
+                         expand_pairs=frames, mark_owners=frames)
+
+
+def gradient_counts(calls):
+    """The launch counts of `calls` gradient frames (a training step's
+    kernels: 4 scans, the checkpointed forward, the backward, the segment
+    sum, the projection both ways and the frame glue both ways)."""
+    return expect_counts(scan_i32_add=calls, scan_i32_max=3 * calls, scan_i32=4 * calls,
+                         composite_fwd=calls, composite_fwd_checkpoint=calls, composite_bwd=calls, segsum=calls,
+                         project_fwd=calls, project_fwd_payload=calls, project_bwd=calls, gather_payload=calls,
+                         scatter_payload=calls, expand_pairs=calls, mark_owners=calls)
+
+
 def backward_inputs(splats, cam, cfg, seed):
     """The gradient path's own stages up to the backward kernel: binning with
     the gradient map, and a seeded cotangent."""
@@ -514,10 +583,11 @@ def compare_backward(fwd, b, used, tchk, d_out, g_pad, label, bgd=None, offsets=
     return got, worst, worst_abs
 
 
-def compare_segsum(gspace, b, packed, label):
-    """segsum_by_splat against its plain version: two runs bit-equal, the
-    storage-order result the rank-order one permuted, empty ranks exact
-    zeros."""
+def compare_segsum(gspace, b, packed, label, tol=SEGSUM_TOL, norm_tol=None):
+    """segsum_by_splat against its plain version: each row within `tol` of
+    the row's max (and, with `norm_tol`, of its 2-norm), two runs
+    bit-equal, the storage-order result the rank-order one permuted, empty
+    ranks exact zeros."""
     args = (gspace, b.dest_of_exp, b.exp_offsets, b.exp_counts)
     got = ksegsum.segsum_by_splat(*args, packed=packed)
     again = ksegsum.segsum_by_splat(*args, packed=packed)
@@ -531,8 +601,11 @@ def compare_segsum(gspace, b, packed, label):
         scale = float(want[r].abs().max())
         err = float((got[r] - want[r]).abs().max())
         worst_abs = max(worst_abs, err)
-        if err > SEGSUM_TOL * scale:
+        if err > tol * scale:
             fail(f"segsum {label}: row {r} differs by {err:.3e} (row max {scale:.3e})")
+        norm = float(want[r].norm())
+        if norm_tol is not None and float((got[r] - want[r]).norm()) > norm_tol * norm:
+            fail(f"segsum {label}: row {r} differs by more than {norm_tol} of its 2-norm {norm:.3e}")
         if scale > 0:
             worst = max(worst, err / scale)
     n = b.exp_counts.shape[0]
@@ -1101,11 +1174,12 @@ def same_words(a, b):
 
 def check_glue_case(splats, cam, cfg, offsets, label, res):
     """gather_payload (also its float32 rows for the differentiable frame),
-    scatter_payload, mark_owners and expand_pairs against their plain
-    versions, bit for bit, on one scene, camera and mode; then bin_splats
-    through the kernels against bin_splats through the plain versions
-    (plain_path), in the frame's form (operands) and in the order= form with
-    the gradient map."""
+    scatter_payload, mark_owners, expand_pairs and the scans (on the frame's
+    counts and marks) against their plain versions, bit for bit, on one
+    scene, camera and mode; then bin_splats through the kernels against
+    bin_splats through the plain versions (plain_path), in the frame's form
+    (operands) with and without the gradient map and in the order= form with
+    it."""
     n, w, h = splats.count, cam.width, cam.height
     if cfg.wireframe:
         fields = wire._wireframe_projected(splats, cam, LINE_PX).fields
@@ -1137,6 +1211,8 @@ def check_glue_case(splats, cam, cfg, offsets, label, res):
     ops = kglue.gather_payload(fields, order, w, h, cfg, rho_ok, *offsets).operands
     nty, ntx = binning.tile_grid(w, h, cfg.tile_h, cfg.tile_w)
     cum = kscan.scan_i32(ops.counts, "add")
+    if not same_words(cum, kscan.scan_i32_plain(ops.counts, "add")):
+        fail(f"scan_i32[add] {label}: differs from its plain version on the frame's counts")
     total = int(cum[-1])
     for budget in (cfg.pair_budget(n), max(1, total // 2)):  # the second drops pairs
         offs, marks = kglue.mark_owners(cum, ops.counts, budget)
@@ -1145,6 +1221,8 @@ def check_glue_case(splats, cam, cfg, offsets, label, res):
             fail(f"mark_owners {label} budget={budget}: differs from its plain version")
         res["marks_cases"] += 1
         smax = kscan.scan_i32(marks[:budget], "max")
+        if not same_words(smax, kscan.scan_i32_plain(marks[:budget].contiguous(), "max")):
+            fail(f"scan_i32[max] {label} budget={budget}: differs from its plain version on the frame's marks")
         # the frame's tile count, and one whose (tile, rank) key does not fit 31 bits
         for num_tiles in (nty * ntx, 1 << 28):
             for with_rank in (False, True):
@@ -1163,6 +1241,9 @@ def check_glue_case(splats, cam, cfg, offsets, label, res):
                 res["sat_culled_pairs"] += int(((tile == num_tiles) & real).sum())
     forms = (("operands", lambda: binning.bin_splats(None, w, h, cfg, row_offset=offsets[0], col_offset=offsets[1],
                                                       operands=ops)),
+             ("operands, gradient map", lambda: binning.bin_splats(None, w, h, cfg, row_offset=offsets[0],
+                                                                    col_offset=offsets[1], operands=ops,
+                                                                    with_grad_map=True)),
              ("order", lambda: binning.bin_splats(ProjectedSplats(fields=fields), w, h, cfg,
                                                    row_offset=offsets[0], col_offset=offsets[1], order=order,
                                                    with_grad_map=True)))
@@ -1505,9 +1586,7 @@ def phase_main_path(n_splats, width, height, frames):
     peak = torch.cuda.max_memory_allocated()
 
     # serving pays for no training: no checkpoints, no backward, no gradient map
-    want = expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames, composite_fwd=frames,
-                         project_fwd=frames, project_fwd_payload=frames, gather_payload=frames,
-                         expand_pairs=frames, mark_owners=frames)
+    want = frame_counts(frames)
     if counts != want:
         fail(f"main path launch counts {counts}, expected {want}")
     if any(dropped):
@@ -1731,11 +1810,19 @@ def timed_steps(step, params, target, steps):
 
 
 def phase_train_path(splats, cam, cfg, steps):
-    """make_train_step with default_optimizer on the production scene: the
-    captured step (call 1 eager, call 2 captured and replayed once, then
-    replays), and beside it the same four lines run eagerly with the same
-    capturable optimizer from the same start - losses and parameters
-    bit-equal."""
+    """make_train_step with default_optimizer on the production scene (see
+    train_run); prints the train_path line."""
+    cfg, target, counts, line = train_run(splats, cam, cfg, steps)
+    emit("train_path", **line)
+    return cfg, target, counts, line["median_step_ms"]
+
+
+def train_run(splats, cam, cfg, steps):
+    """make_train_step with default_optimizer: the captured step (call 1
+    eager, call 2 captured and replayed once, then replays), and beside it
+    the same four lines run eagerly with the same capturable optimizer from
+    the same start - losses and parameters bit-equal.  Returns the step's
+    config, its target, its launch counts and its line."""
     n = splats.count
     target = perturbed_target(splats, cam, cfg)
     # a budget with room for the few steps the parameters move
@@ -1747,11 +1834,7 @@ def phase_train_path(splats, cam, cfg, steps):
     warm, losses, times, counts, peak = timed_steps(step, params, target, steps)
     reserved = torch.cuda.memory_reserved()
 
-    want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps,
-                         composite_fwd=steps, composite_fwd_checkpoint=steps,
-                         composite_bwd=steps, segsum=steps, project_fwd=steps, project_fwd_payload=steps,
-                         project_bwd=steps, gather_payload=steps, scatter_payload=steps, expand_pairs=steps,
-                         mark_owners=steps)
+    want = gradient_counts(steps)
     if counts != want:
         fail(f"train path launch counts {counts}, expected {want}")
     if not all(math.isfinite(x) for x in warm + losses):
@@ -1794,19 +1877,19 @@ def phase_train_path(splats, cam, cfg, steps):
         moved_by[k] = float((v.detach() - start[k]).abs().max())
         if not moved_by[k] > 0.0:
             fail(f"parameter {k} did not move")
-    emit("train_path", splats=n, size=f"{cam.width}x{cam.height}", steps=steps, warmup_steps=WARMUP_STEPS,
-         payload_dtype=cfg.payload_dtype, transmittance_eps=cfg.transmittance_eps,
-         pair_budget=cfg.pair_budget(n), optimizer="Adam, one group per field (default_optimizer, capturable)",
-         lambda_dssim=0.2, warmup_losses=warm, losses=losses, step_ms=times,
-         median_step_ms=statistics.median(times), min_step_ms=min(times),
-         median_eager_step_ms=statistics.median(etimes), min_eager_step_ms=min(etimes), eager_step_ms=etimes,
-         eager_losses="bit-equal", eager_parameters="bit-equal", peak_memory_bytes=peak,
-         eager_peak_memory_bytes=epeak, reserved_bytes=reserved, graph_pool_bytes=step.graph.pool_bytes,
-         replay_device_ops=traced["device_ops_per_call"], replay_device_us=traced["device_us_per_call"],
-         replay_kernels_traced=traced["our_kernels_per_call"],
-         dropped_pairs=dropped, max_abs_move=moved_by, launches=counts,
-         launches_per_step={k: v / steps for k, v in counts.items()})
-    return cfg, target, counts, statistics.median(times)
+    line = dict(splats=n, size=f"{cam.width}x{cam.height}", steps=steps, warmup_steps=WARMUP_STEPS,
+                payload_dtype=cfg.payload_dtype, transmittance_eps=cfg.transmittance_eps,
+                pair_budget=cfg.pair_budget(n), optimizer="Adam, one group per field (default_optimizer, capturable)",
+                lambda_dssim=0.2, warmup_losses=warm, losses=losses, step_ms=times,
+                median_step_ms=statistics.median(times), min_step_ms=min(times),
+                median_eager_step_ms=statistics.median(etimes), min_eager_step_ms=min(etimes), eager_step_ms=etimes,
+                eager_losses="bit-equal", eager_parameters="bit-equal", peak_memory_bytes=peak,
+                eager_peak_memory_bytes=epeak, reserved_bytes=reserved, graph_pool_bytes=step.graph.pool_bytes,
+                replay_device_ops=traced["device_ops_per_call"], replay_device_us=traced["device_us_per_call"],
+                replay_kernels_traced=traced["our_kernels_per_call"],
+                dropped_pairs=dropped, max_abs_move=moved_by, launches=counts,
+                launches_per_step={k: v / steps for k, v in counts.items()})
+    return cfg, target, counts, line
 
 
 def phase_train_stages(splats, cam, cfg, target, reps=3):
@@ -1876,6 +1959,306 @@ def phase_train_stages(splats, cam, cfg, target, reps=3):
               "their own times are on the kernels line")
 
 
+# ----------------------------------------------------------------- large configurations
+
+# The JAX package's large configurations, at full size through the normal
+# entry points (bench.py --scene trained; bench.py:30-43's 2^23 envelope):
+# 1920x1080, packed payload, eps 1e-3, the pair budget tuned at headroom
+# 1.02 on the phase's cameras.
+TRAINED_SPLATS = 1_000_000
+ENVELOPE_SPLATS = 8_388_608
+ENVELOPE_CAPACITY = 16384
+ENVELOPE_CHUNK = 256
+# orbit cameras of the two phases' frames, and their timed gradient calls
+# (the bench camera's, eager and then replayed)
+LARGE_FRAMES = 3
+LARGE_GRAD_CALLS = 3
+
+
+def uncapped_tile_counts(splats, cam, cfg):
+    """The (T,) pairs each tile of the frame holds, with no tile_capacity
+    (the binning's capped count under a capacity that caps nothing)."""
+    budget = cfg.pair_budget(splats.count)
+    wide = dataclasses.replace(cfg, tile_capacity=-(-budget // cfg.chunk) * cfg.chunk)
+    return compositor_inputs(splats, cam, wide)[1].tile_count
+
+
+def fit_capacity(splats, cams, cfg):
+    """cfg's tile_capacity where no tile of these cameras' frames holds more
+    pairs, else the smallest multiple of the chunk that drops none; and the
+    deepest tile's pairs."""
+    deepest = max(int(uncapped_tile_counts(splats, c, cfg).max()) for c in cams)
+    if deepest <= cfg.tile_capacity:
+        return cfg, deepest
+    return dataclasses.replace(cfg, tile_capacity=-(-deepest // cfg.chunk) * cfg.chunk), deepest
+
+
+def check_path_binning(splats, cam, cfg, label):
+    """The frame glue and the binning of a path's whole frame against their
+    plain versions (check_glue_case); the key form the binning took and
+    whether the exact-coverage cull ran."""
+    n, w, h = splats.count, cam.width, cam.height
+    res = {"gather_cases": 0, "scatter_cases": 0, "marks_cases": 0, "expand_cases": 0, "key_split_cases": 0,
+           "bin_splats_cases": 0, "sat_culled_pairs": 0}
+    check_glue_case(splats, cam, cfg, (0, 0), label, res)
+    nty, ntx = binning.tile_grid(w, h, cfg.tile_h, cfg.tile_w)
+    sat_cull, rho_ok = binning.sat_flags(n, w, h, cfg)
+    return {"bin_splats": "bit-equal through the kernels and through the plain versions (operands form with and "
+                          "without the gradient map, order= form with it)",
+            "key_form": "packed" if kglue.key_fits(nty * ntx, n) else "wide", "sat_cull": sat_cull, "rho_ok": rho_ok,
+            "cases": res}
+
+
+def large_frames(splats, cams, cfg, label):
+    """The frames of a large path through render(..., with_stats=True),
+    eager (launch counters zeroed before, read after) and captured
+    (captured_frame: each replay bit-equal to its eager frame)."""
+    w, h = cams[0].width, cams[0].height
+    frames = len(cams)
+    gt.render(splats, cams[0], cfg, backend="auto")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    times, images, dropped = [], [], []
+    for cam in cams:
+        ms, (image, stats) = cuda_time_ms(lambda: gt.render(splats, cam, cfg, backend="auto", with_stats=True))
+        times.append(ms)
+        images.append(image)
+        dropped.append(int(stats.dropped_pairs))
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = frame_counts(frames)
+    if counts != want:
+        fail(f"{label} frames: launch counts {counts}, expected {want}")
+    if any(dropped):
+        fail(f"{label} frames: dropped_pairs {dropped}")
+    coverage = []
+    for image in images:
+        check_frame(image, w, h, f"{label} frame")
+        coverage.append(round(float((image[..., 3] > 0.5).float().mean()), 4))
+    if min(coverage) < 0.01:
+        fail(f"{label} frames (nearly) empty: covered shares {coverage}")
+    graph = captured_frame(splats, cams, cfg, images, want)
+    del graph["serve"], images
+    return {"frame_ms": times, "median_frame_ms": statistics.median(times), "dropped_pairs": dropped,
+            "covered_share": coverage, "peak_memory_bytes": peak, "launches": counts,
+            "median_graph_frame_ms": graph.pop("median_graph_frame_ms"), "graph": graph}
+
+
+def large_gradient(splats, cam, cfg, calls, label):
+    """bench.py's forward+backward: the gradient of sum(render(...)[..., :3])
+    over all six fields, eager (`calls` timed, every call bit-equal to the
+    first) and captured in a CUDA graph (every replay bit-equal to the eager
+    gradient), dropped_pairs 0, the launch counters zeroed before and read
+    after each, a replay's trace holding the counted kernels."""
+    leaves = {f: getattr(splats, f).detach().clone().requires_grad_(True) for f in SPLAT_FIELDS}
+    scene = dataclasses.replace(splats, **leaves)
+
+    def fwd_bwd():
+        image, stats = gt.render(scene, cam, cfg, backend="auto", with_stats=True)
+        grads = torch.autograd.grad(image[..., :3].sum(), [leaves[f] for f in SPLAT_FIELDS])
+        return grads + (stats.dropped_pairs,)
+
+    def same(a, b):
+        return all(bits_equal(x, y) for x, y in zip(a, b))
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    times, first, equal = [], None, 0
+    for _ in range(calls):
+        ms, out = cuda_time_ms(fwd_bwd)
+        times.append(ms)
+        if first is None:
+            first = out
+        equal += int(same(out, first))
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = gradient_counts(calls)
+    if counts != want:
+        fail(f"{label} gradient: launch counts {counts}, expected {want}")
+    if equal != calls:
+        fail(f"{label} gradient: {calls - equal} of {calls} eager calls differ from the first")
+    if int(first[-1]):
+        fail(f"{label} gradient: dropped_pairs {int(first[-1])}")
+    grad_max = {}
+    for f, g in zip(SPLAT_FIELDS, first):
+        if not torch.isfinite(g).all():
+            fail(f"{label} gradient of {f} holds non-finite values")
+        grad_max[f] = float(g.abs().max())
+    if max(grad_max.values()) == 0.0:
+        fail(f"{label} gradient is all zero")
+    del out
+    t0 = time.time()
+    graph = graphs.capture(fwd_bwd)
+    capture_s = time.time() - t0
+    for _ in range(WARMUP_STEPS):
+        graph.replay()
+    torch.cuda.synchronize()
+    zero_counters()
+    gtimes, gequal = [], 0
+    for _ in range(calls):
+        ms, out = cuda_time_ms(graph.replay)
+        gtimes.append(ms)
+        gequal += int(same(out, first))
+    gcounts = read_counters()
+    if gcounts != want:
+        fail(f"{label} captured gradient: launch counts {gcounts}, expected {want}")
+    if gequal != calls:
+        fail(f"{label} captured gradient: {calls - gequal} of {calls} replays differ from the eager gradient")
+    traced = traced_calls(graph.replay, 2)
+    per_call = {k: v // calls for k, v in gcounts.items() if k in OUR_KERNELS}
+    if traced["our_kernels_per_call"] != per_call:
+        fail(f"{label} captured gradient: a replay's trace holds {traced['our_kernels_per_call']}, "
+             f"the counters {per_call}")
+    out = {"calls": calls, "grad_ms": times, "median_grad_ms": statistics.median(times),
+           "median_graph_grad_ms": statistics.median(gtimes), "graph_grad_ms": gtimes,
+           "bit_equal_to_eager": gequal, "dropped_pairs": 0, "grad_abs_max": grad_max, "peak_memory_bytes": peak,
+           "graph_pool_bytes": graph.pool_bytes, "capture_s": capture_s, "launches": counts,
+           "graph_launches": gcounts, "replay_device_ops": traced["device_ops_per_call"],
+           "replay_device_us": traced["device_us_per_call"], "replay_kernels_traced": traced["our_kernels_per_call"]}
+    del graph, first
+    return out
+
+
+def large_wireframe(splats, cams, cfg, label):
+    """bench.py's wireframe frame (bench.py:114-130): render_wireframe with
+    the float32 payload and the untuned budget, one frame a camera between
+    two CUDA events; its dropped_pairs printed."""
+    w, h = cams[0].width, cams[0].height
+    wcfg = dataclasses.replace(cfg, payload_dtype="float32", pair_budget_override=0)
+    gt.render_wireframe(splats, cams[0], wcfg, line_px=LINE_PX)
+    zero_counters()
+    times, images = [], []
+    for cam in cams:
+        ms, image = cuda_time_ms(lambda: gt.render_wireframe(splats, cam, wcfg, line_px=LINE_PX))
+        times.append(ms)
+        images.append(image)
+    counts = read_counters()
+    frames = len(cams)
+    want = dict(frame_counts(frames), composite_fwd_wire=frames)
+    if counts != want:
+        fail(f"{label} wireframe: launch counts {counts}, expected {want}")
+    for image in images:
+        check_frame(image, w, h, f"{label} wireframe")
+    covered = float((images[0][..., 3] > 0.5).float().mean())
+    if not covered > 0.01:
+        fail(f"{label} wireframe frame (nearly) empty: {covered:.4f} of the pixels covered")
+    dropped = [int(wire._wireframe_inputs(splats, c, wcfg, LINE_PX)[1].dropped_pairs) for c in cams]
+    return wcfg, {"payload_dtype": wcfg.payload_dtype, "pair_budget": wcfg.pair_budget(splats.count),
+                  "line_px": LINE_PX, "frame_ms": times, "median_frame_ms": statistics.median(times),
+                  "dropped_pairs": dropped, "covered_share": covered, "launches": counts}
+
+
+def large_kernel_rows(splats, cam, cfg, counts, tag, wcfg=None, wire_launches=0):
+    """Every kernel of a large path held to its plain version at the path's
+    own inputs (its first camera, its config; the backward and the segment
+    sum on the gradient frame's image cotangent, ones on the colour rows),
+    with its time, the plain version's, the library call's and the bound
+    (rows named with `tag`; `counts` the path's launches)."""
+    n = splats.count
+    g = torch.Generator(device=DEV)
+    g.manual_seed(9)
+    rows = [scan_row(kind, length, g, counts[f"scan_i32_{kind}"], tag=tag)
+            for kind, length in (("add", n), ("max", cfg.pair_budget(n)))]
+    rows.append(forward_row(splats, cam, cfg, counts["composite_fwd"] - counts["composite_fwd_checkpoint"]
+                            - counts["composite_fwd_wire"], tag=tag))
+    rows.append(projection_row(False, splats, cam, cfg, counts["project_fwd"], payload_dtype=cfg.payload_dtype,
+                               tag=tag))
+    rows += glue_rows(splats, cam, cfg, {"path": counts}, counts, tag=tag)
+    d_out = torch.zeros((cam.height, cam.width, 4), device=DEV)
+    d_out[..., :3] = 1.0
+    rows += phase_train_kernels(splats, cam, cfg, counts, tag=tag, d_out=d_out, seg_tols=(GRAD_TOL, GRAD_TOL))
+    if wcfg is not None:
+        rows.append(wire_row(splats, cam, wcfg, wire_launches, tag=tag))
+    return rows
+
+
+def add_counts(*counts):
+    return {k: sum(c.get(k, 0) for c in counts) for k in counts[0]}
+
+
+def large_path(phase, splats, cams, base, steps=0, wireframe=False):
+    """One of the JAX package's large configurations on the card (see
+    phase_trained_path, phase_envelope_path): the binning checked whole, the
+    frames eager and captured, the gradient eager and captured, with
+    `steps` the training step, with `wireframe` the wireframe frame, then
+    every kernel of the path held to its plain version at its inputs.
+    Prints the phase's line; returns its kernel rows."""
+    t0 = time.time()
+    n = splats.count
+    cam = cams[0]
+    w, h = cam.width, cam.height
+    cfg = gt.tune_pair_budget(splats, cams, base, headroom=1.02)
+    cfg, deepest = fit_capacity(splats, cams, cfg)
+    nty, ntx = binning.tile_grid(w, h, cfg.tile_h, cfg.tile_w)
+    pairs = [gt.measure_pairs(splats, c, cfg) for c in cams]
+    line = {"splats": n, "size": f"{w}x{h}", "frames": len(cams), "payload_dtype": cfg.payload_dtype,
+            "transmittance_eps": cfg.transmittance_eps, "tile_capacity": cfg.tile_capacity,
+            "tile_capacity_asked": base.tile_capacity, "deepest_tile_pairs": deepest, "chunk": cfg.chunk,
+            "max_chunks": kcomp.max_chunks(cfg), "pair_budget": cfg.pair_budget(n), "pairs": pairs,
+            "tiles": nty * ntx}
+    line["binning"] = check_path_binning(splats, cam, cfg, phase)
+    line["frames_path"] = large_frames(splats, cams, cfg, phase)
+    line["gradient"] = large_gradient(splats, cam, cfg, LARGE_GRAD_CALLS, phase)
+    runs = [line["frames_path"]["launches"], line["frames_path"]["graph"]["launches"],
+            line["gradient"]["launches"], line["gradient"]["graph_launches"]]
+    wcfg = None
+    if steps:
+        step_cfg, target, step_counts, step = train_run(splats, cam, cfg, steps)
+        del target
+        runs.append(step_counts)
+        line["step"] = {k: step[k] for k in (
+            "steps", "pair_budget", "warmup_losses", "losses", "median_step_ms", "step_ms", "median_eager_step_ms",
+            "eager_losses", "eager_parameters", "peak_memory_bytes", "graph_pool_bytes", "replay_device_ops",
+            "replay_device_us", "dropped_pairs", "launches")}
+        line["step"]["tile_capacity"] = step_cfg.tile_capacity
+    if wireframe:
+        wcfg, line["wireframe"] = large_wireframe(splats, cams, cfg, phase)
+        runs.append(line["wireframe"]["launches"])
+    counts = add_counts(*runs)
+    line["dropped_pairs"] = {"frames": line["frames_path"]["dropped_pairs"],
+                             "graph_frames": line["frames_path"]["graph"]["dropped_pairs"],
+                             "gradient": line["gradient"]["dropped_pairs"]}
+    line["peak_memory_bytes"] = max(line["frames_path"]["peak_memory_bytes"], line["gradient"]["peak_memory_bytes"])
+    line["graph_pool_bytes"] = {"frame": line["frames_path"]["graph"]["graph_pool_bytes"],
+                                "gradient": line["gradient"]["graph_pool_bytes"]}
+    line["seconds_paths"] = round(time.time() - t0, 1)
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    tag = "@" + phase.replace("_path", "")
+    rows = large_kernel_rows(splats, cam, cfg, counts, tag, wcfg,
+                             line["wireframe"]["launches"]["composite_fwd_wire"] if wireframe else 0)
+    line["kernels_checked"] = {r["name"]: {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                                           "bound_ms": r["bound_ms"], "plain_ms": r["plain_ms"]} for r in rows}
+    line["launches"] = counts
+    line["seconds_kernels"] = round(time.time() - t1, 1)
+    line["seconds"] = round(time.time() - t0, 1)
+    emit(phase, **line)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_trained_path(width, height, steps):
+    """The trained-statistics scene at 1M splats (bench.py --scene trained:
+    trained_like_splats(1M, extent 1.2, sh_scale 0.1), seed 0)."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(0)
+    splats = gt.trained_like_splats(g, TRAINED_SPLATS, extent=1.2, sh_scale=0.1, device=DEV)
+    base = gt.RenderConfig(payload_dtype="packed", transmittance_eps=1e-3)
+    return large_path("trained_path", splats, orbit_cameras(width, height, LARGE_FRAMES), base, steps=steps)
+
+
+def phase_envelope_path(width, height):
+    """The reference's 2^23 budget envelope: 8,388,608 splats of the main
+    path's scene (bench_scene), tile_capacity 16384, chunk 256."""
+    splats = bench_scene(ENVELOPE_SPLATS, seed=0)
+    base = gt.RenderConfig(payload_dtype="packed", transmittance_eps=1e-3, tile_capacity=ENVELOPE_CAPACITY,
+                           chunk=ENVELOPE_CHUNK)
+    return large_path("envelope_path", splats, orbit_cameras(width, height, LARGE_FRAMES), base, wireframe=True)
+
+
 def check_frame(image, width, height, label):
     if tuple(image.shape) != (height, width, 4) or image.dtype != torch.float32:
         fail(f"{label}: image shape/dtype {tuple(image.shape)} {image.dtype}")
@@ -1913,9 +2296,7 @@ def phase_host_scene(splats, cams, frames, main_cfg):
         dropped.append(int(stats.dropped_pairs))
         images.append(image)
     counts = read_counters()
-    want = expect_counts(scan_i32_add=frames, scan_i32_max=frames, scan_i32=2 * frames,
-                         composite_fwd=frames, composite_fwd_depth=frames, project_fwd=frames,
-                         project_fwd_payload=frames, gather_payload=frames, expand_pairs=frames, mark_owners=frames)
+    want = dict(frame_counts(frames), composite_fwd_depth=frames)
     if counts != want:
         fail(f"host-scene frames: launch counts {counts}, expected {want}")
     if any(dropped):
@@ -1948,10 +2329,7 @@ def phase_host_scene(splats, cams, frames, main_cfg):
 
     grad_ms, loss = cuda_time_ms(grad_step)
     counts = read_counters()
-    want = expect_counts(scan_i32_add=1, scan_i32_max=3, scan_i32=4, composite_fwd=1,
-                         composite_fwd_checkpoint=1, composite_fwd_depth=1, composite_bwd=1,
-                         composite_bwd_depth=1, segsum=1, project_fwd=1, project_fwd_payload=1, project_bwd=1,
-                         gather_payload=1, scatter_payload=1, expand_pairs=1, mark_owners=1)
+    want = dict(gradient_counts(1), composite_fwd_depth=1, composite_bwd_depth=1)
     if counts != want:
         fail(f"host-scene gradient: launch counts {counts}, expected {want}")
     grad_max = {}
@@ -1987,11 +2365,9 @@ def phase_host_scene(splats, cams, frames, main_cfg):
     counts_o = read_counters()
     wire_imgs = [gt.render_wireframe(splats, c, wcfg, line_px=LINE_PX) for c in cams[:3]]
     over_imgs = [gt.render_wire_over(splats, c, wcfg, line_px=LINE_PX) for c in cams[:3]]
-    if counts_w != expect_counts(scan_i32_add=3, scan_i32_max=3, scan_i32=6, composite_fwd=3, composite_fwd_wire=3,
-                                 project_fwd=3, project_fwd_payload=3, gather_payload=3, expand_pairs=3, mark_owners=3):
+    if counts_w != dict(frame_counts(3), composite_fwd_wire=3):
         fail(f"wireframe frames: launch counts {counts_w}")
-    if counts_o != expect_counts(scan_i32_add=6, scan_i32_max=6, scan_i32=12, composite_fwd=6, composite_fwd_wire=3,
-                                 project_fwd=6, project_fwd_payload=6, gather_payload=6, expand_pairs=6, mark_owners=6):
+    if counts_o != dict(frame_counts(6), composite_fwd_wire=3):
         fail(f"wire-over frames: launch counts {counts_o}")
     args, b = wire._wireframe_inputs(splats, cam, wcfg, LINE_PX)
     if int(b.dropped_pairs) != 0:
@@ -2105,8 +2481,7 @@ def registry_run(reg, ids, cams, label):
         images.append(image)
     counts = read_counters()
     n = len(cams)
-    want = expect_counts(scan_i32_add=n, scan_i32_max=n, scan_i32=2 * n, composite_fwd=n, project_fwd=n,
-                         project_fwd_payload=n, gather_payload=n, expand_pairs=n, mark_owners=n)
+    want = frame_counts(n)
     if counts != want:
         fail(f"scene_path {label}: launch counts {counts}, expected {want}")
     dropped = [int(s.dropped_pairs) for s in stats]
@@ -2316,10 +2691,7 @@ def phase_ply_fit(tmp, steps=120):
         losses.append(float(loss))
     counts = read_counters()
     end = view0_psnr()
-    want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps, composite_fwd=steps,
-                         composite_fwd_checkpoint=steps, composite_bwd=steps, segsum=steps,
-                         project_fwd=steps, project_fwd_payload=steps, project_bwd=steps, gather_payload=steps,
-                         scatter_payload=steps, expand_pairs=steps, mark_owners=steps)
+    want = gradient_counts(steps)
     if counts != want:
         fail(f"ply fit: launch counts {counts}, expected {want}")
     if not (math.isfinite(end) and end > start + 3.0 and end > 26.0):
@@ -2398,17 +2770,24 @@ OUR_KERNELS = {name: c.kernel for name, c in kernel_table.counters().items() if 
 # Traces a traced_calls may take: a session whose trace comes back with
 # fewer device events than calls (every traced call enqueues at least one;
 # the tracer's failure, seen on the card with no event at all and, once CUDA
-# graphs had run in the process, with a few of the calls' events) is taken
-# again; what a trace with an event a call or more shows is never retried.
+# graphs had run in the process, with a few of the calls' events; and for
+# mark_owners' two kernels, one of them missing from every call) is taken
+# again; what a trace with as many events a call as the call is known to
+# enqueue, or more, shows is never retried.
 TRACE_ATTEMPTS = 5
 
 
-def traced_calls(fn, calls):
+def traced_calls(fn, calls, ops_per_call=1):
     """fn() `calls` times under torch.profiler: the device operations one
     call enqueues and their device microseconds a call, from the trace.
     One more call runs first in the session and is not counted: after CUDA
     graphs had run, a session's trace has come back without the first
-    device events it should hold (a captured frame's first kernel)."""
+    device events it should hold (a captured frame's first kernel).
+    `ops_per_call`: the device operations a call is known to enqueue (a
+    wrapper of two kernels); a trace with fewer than that a call is taken
+    again like one with fewer events than calls (the tracer has come back
+    with one of mark_owners' two kernels missing from every call of a
+    session)."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, TRACE_ATTEMPTS + 1):
@@ -2420,10 +2799,10 @@ def traced_calls(fn, calls):
                 fn()
             torch.cuda.synchronize()
         events = device_events(stop_trace(), after="chip_smoke_counted_calls")
-        if len(events) >= calls:
+        if len(events) >= calls * ops_per_call:
             break
     else:
-        fail(f"the profiler trace holds fewer device events than calls ({TRACE_ATTEMPTS} sessions)")
+        fail(f"the profiler trace holds fewer than {ops_per_call} device events a call ({TRACE_ATTEMPTS} sessions)")
     return {"device_ops_per_call": len(events) / calls,
             "device_us_per_call": sum(d for _, d in events) / calls,
             "device_op_names": sorted({n[:60] for n, _ in events}), "trace_sessions": attempt,
@@ -2489,7 +2868,25 @@ def compositor_bounds(counts, nbytes, kind, mode):
 
 def bytes_bounds(nbytes):
     b = sol.bytes_bound(nbytes, DEVICE)
-    return {"bound_ms": b["datasheet_ms"], "bound_by": "bytes", "bound_measured_ms": b["measured_ms"]}
+    return {"bound_ms": b["datasheet_ms"], "bound_by": "bytes", "bound_measured_ms": b["measured_ms"],
+            REPRICE: lambda: bytes_bounds(nbytes)}
+
+
+# A row's key for the function that prices its bounds again: a row taken
+# before the calibrate phase has its measured-rate bounds at the data
+# sheet's rates until priced_rows prices them at this run's.
+REPRICE = "_reprice"
+
+
+def priced_rows(rows):
+    """The rows with their bounds priced at DEVICE's rates now."""
+    for row in rows:
+        fresh = row.pop(REPRICE, None)
+        if fresh is not None:
+            fresh = fresh()
+            fresh.pop(REPRICE, None)
+            row.update(fresh)
+    return rows
 
 
 def pair_counts(fwd, used, bgd=None, offsets=(0, 0)):
@@ -2503,6 +2900,7 @@ def compositor_row(name, source, replaces, launches, err, ms, plain_ms, counts, 
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
     row.update(compositor_bounds(counts, nbytes, kind, mode))
+    row[REPRICE] = lambda: compositor_bounds(counts, nbytes, kind, mode)
     row["library_ms"] = None
     pairs = max(counts["pairs"], 1)
     row.update(pairs_walked=counts["pairs"], live_pixel_updates=counts["live_pixel_updates"],
@@ -2522,7 +2920,7 @@ PROJ_SRC = "gsplat_tpu_torch/csrc/projection.cu"
 PROJ_REPLACES = "none: XLA's fusion of gsplat_tpu/ops/projection.py:142 under jax.jit"
 
 
-def projection_row(backward, splats, cam, cfg, launches, payload_dtype=None, masked=False, **extra):
+def projection_row(backward, splats, cam, cfg, launches, payload_dtype=None, masked=False, tag="", **extra):
     """project_fwd or project_bwd at a path's inputs: error against the plain
     version, the kernel's time (a caller's, back to back, every call reading
     300 or 520 MB at 1M: more than the L2 holds) and its device time from a
@@ -2530,7 +2928,9 @@ def projection_row(backward, splats, cam, cfg, launches, payload_dtype=None, mas
     ``payload_dtype``: the forward in the frame's form, sanitized and
     quantized (its time without that beside it); ``masked``: the backward of
     that form (an invalid splat's cotangent zeroed), on a splat-major
-    cotangent as the training path gives it."""
+    cotangent as the training path gives it.  ``tag``: appended to the
+    row's name (the shapes of another path).  The backward is also held to
+    its plain version in the 2-norm of each field (GRAD_TOL)."""
     n = splats.count
     args = proj_args(splats, cam, cfg.sh_order, not cfg.soft_cutoff, cfg.only_sh)
     if backward:
@@ -2543,12 +2943,15 @@ def projection_row(backward, splats, cam, cfg, launches, payload_dtype=None, mas
         want = kproj.project_fields_bwd_plain(*args, cot, masked=masked)
         err = max(float((a - b).abs().max()) for a, b in zip(got, want) if a is not None)
         equal = all(bits_equal(a, b) for a, b in zip(got, want) if a is not None)
-        rel = max(m for m, _ in field_rel_errs(got, want).values())
-        if not rel <= PROJ_BWD_TOL:
-            fail(f"project_bwd at the path's inputs: {rel:.3e} of a field's max against its plain version")
+        rels = list(field_rel_errs(got, want).values())
+        rel = max(m for m, _ in rels)
+        rel_l2 = max(l2 for _, l2 in rels)
+        if not (rel <= PROJ_BWD_TOL and rel_l2 <= GRAD_TOL):
+            fail(f"project_bwd at the path's inputs{tag}: {rel:.3e} of a field's max, {rel_l2:.3e} of its 2-norm "
+                 "against its plain version")
         kernel = lambda: kproj.project_fields_bwd(*args, cot, masked=masked)
         plain = lambda: kproj.project_fields_bwd_plain(*args, cot, masked=masked)
-        extra = dict(extra, masked=masked)
+        extra = dict(extra, masked=masked, max_rel_err_2norm=rel_l2)
     else:
         def plain():
             raw = kproj.project_fields_plain(*args)
@@ -2561,7 +2964,8 @@ def projection_row(backward, splats, cam, cfg, launches, payload_dtype=None, mas
         err = float((got - want).abs().max())
         equal = bits_equal(got, want)
         if not equal:
-            fail(f"project_fwd (payload_dtype={payload_dtype}) at the path's inputs differs from its plain version")
+            fail(f"project_fwd (payload_dtype={payload_dtype}) at the path's inputs{tag} differs from its plain "
+                 "version")
         extra = dict(extra, payload_dtype=payload_dtype,
                      ms_raw_fields=cuda_time_ms(lambda: kproj.project_fields(*args), 50, warmup=3)[0])
     del got, want
@@ -2569,7 +2973,7 @@ def projection_row(backward, splats, cam, cfg, launches, payload_dtype=None, mas
     plain_ms = cuda_time_ms(plain, 5, warmup=1)[0]
     traced = traced_calls(kernel, 20)
     nbytes = sol.projection_bytes(n, cfg.sh_order, backward, cfg.only_sh, not cfg.soft_cutoff, masked)
-    row = {"name": "project_bwd" if backward else "project_fwd", "route": "cuda", "source": PROJ_SRC,
+    row = {"name": ("project_bwd" if backward else "project_fwd") + tag, "route": "cuda", "source": PROJ_SRC,
            "replaces": PROJ_REPLACES, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
     row.update(bytes_bounds(nbytes))
     row.update(library_ms=None, library="none: no single PyTorch call computes the projection",
@@ -2583,17 +2987,23 @@ def projection_row(backward, splats, cam, cfg, launches, payload_dtype=None, mas
     return row
 
 
-def phase_train_kernels(splats, cam, cfg, counts):
-    """The training path's kernels at that path's own inputs."""
+def phase_train_kernels(splats, cam, cfg, counts, tag="", d_out=None, seg_tols=(SEGSUM_TOL, None)):
+    """The training path's kernels at that path's own inputs, or with `tag`
+    (appended to the rows' names) at another path's, with its image
+    cotangent `d_out` (else a seeded one); `seg_tols`: compare_segsum's
+    tolerances (of each row's max, of its 2-norm)."""
     n = splats.count
     packed = cfg.payload_dtype == "packed"
-    fwd, b, d_out, g_pad = backward_inputs(splats, cam, cfg, seed=31)
+    fwd, b, seeded, g_pad = backward_inputs(splats, cam, cfg, seed=31)
+    d_out = seeded if d_out is None else d_out
+    del seeded
+    label = f"train-path frame{tag}"
     payload, pair_splat = fwd[0], fwd[1]
     chunk = cfg.chunk
     rows = []
 
     # checkpoint variant of the forward
-    used, tchk, e_chk = compare_checkpoint(fwd, "train-path frame")
+    used, tchk, e_chk = compare_checkpoint(fwd, label)
     ms_chk = cuda_time_ms(lambda: kcomp.composite_splats(*fwd, checkpoint=True), 10, warmup=2)[0]
     ms_nochk = cuda_time_ms(lambda: kcomp.composite_splats(*fwd), 10, warmup=2)[0]
     plain_chk_ms, _ = cuda_time_ms(lambda: kcomp.composite_splats_plain(*fwd, checkpoint=True))
@@ -2603,27 +3013,27 @@ def phase_train_kernels(splats, cam, cfg, counts):
     img_bytes = cam.height * cam.width * 16
     chk_bytes = chunks_walked * 1024 * 4
     rows.append(compositor_row(
-        "composite_fwd_checkpoint", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:852",
+        "composite_fwd_checkpoint" + tag, FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:852",
         counts["composite_fwd_checkpoint"], e_chk, ms_chk, plain_chk_ms, pc,
         in_bytes + img_bytes + used.numel() * 4 + chk_bytes, "fwd", "beauty",
         ms_without_checkpoints=ms_nochk, chunks_walked=chunks_walked, checkpoint_bytes_written=chk_bytes,
         checkpoint_bytes_allocated=tchk.numel() * 4))
 
     # backward compositor
-    gspace, e_bwd, e_bwd_abs = compare_backward(fwd, b, used, tchk, d_out, g_pad, "train-path frame")
+    gspace, e_bwd, e_bwd_abs = compare_backward(fwd, b, used, tchk, d_out, g_pad, label)
     bargs = fwd[:5] + (used, b.grad_base, d_out, tchk, g_pad) + fwd[5:]
     ms_bwd = cuda_time_ms(lambda: kcomp.composite_bwd(*bargs), 10, warmup=2)[0]
     plain_bwd_ms, _ = cuda_time_ms(lambda: kcomp.composite_bwd_plain(*bargs))
     nbytes = in_bytes + 2 * used.numel() * 4 + img_bytes + chk_bytes + gspace.numel() * 4
     rows.append(compositor_row(
-        "composite_bwd", BWD_SRC, "gsplat_tpu/ops/pallas/composite.py:853", counts["composite_bwd"],
+        "composite_bwd" + tag, BWD_SRC, "gsplat_tpu/ops/pallas/composite.py:853", counts["composite_bwd"],
         e_bwd_abs, ms_bwd, plain_bwd_ms, pc, nbytes, "bwd", "beauty",
         max_abs_err_is="float32 rows; the two bf16 halves are held to one bf16 step",
         worst_row_rel_err=e_bwd, row_tolerance=GRAD_ROW_TOL, grad_space_columns=g_pad,
         audit="0 skipped live pixels, audit output and a second run bit-equal"))
 
     # segment sum
-    e_seg, e_seg_abs = compare_segsum(gspace, b, packed, "train-path frame")
+    e_seg, e_seg_abs = compare_segsum(gspace, b, packed, label, *seg_tols)
     sargs = (gspace, b.dest_of_exp, b.exp_offsets, b.exp_counts)
     ms_seg = cuda_time_ms(lambda: ksegsum.segsum_by_splat(*sargs, packed=packed), 20, warmup=2)[0]
     plain_seg_ms = cuda_time_ms(lambda: ksegsum.segsum_by_splat_plain(*sargs, packed=packed), 5, warmup=2)[0]
@@ -2638,14 +3048,14 @@ def phase_train_kernels(splats, cam, cfg, counts):
     # The same inputs in a float32 space (the depth test's and the float32
     # payload's).
     gs32 = gspace_rows(gspace, packed).t().contiguous()
-    e_f32, _ = compare_segsum(gs32, b, False, "train-path frame, float32 space")
+    e_f32, _ = compare_segsum(gs32, b, False, f"{label}, float32 space", *seg_tols)
     f32_ms = cuda_time_ms(lambda: ksegsum.segsum_by_splat(*(gs32,) + sargs[1:]), 20, warmup=2)[0]
     del gs32
     kept = int(keep.sum())
     other = b.dest_of_exp.numel() * 4 + 2 * n * 4 + 9 * n * 4
     nbytes = kept * gspace.shape[1] * 4 + other
     sector_bytes = kept * 32 * (1 if packed else 2) + other
-    row = {"name": "segsum", "route": "cuda", "source": "gsplat_tpu_torch/csrc/segsum.cu",
+    row = {"name": "segsum" + tag, "route": "cuda", "source": "gsplat_tpu_torch/csrc/segsum.cu",
            "replaces": "gsplat_tpu/ops/pallas/segsum.py:148", "launches": counts["segsum"],
            "max_abs_err": e_seg_abs, "ms": ms_seg, "plain_ms": plain_seg_ms}
     row.update(bytes_bounds(nbytes))
@@ -2653,14 +3063,14 @@ def phase_train_kernels(splats, cam, cfg, counts):
                sector_bytes=sector_bytes, bound_sectors_ms=sector_bytes / DEVICE["hbm_bw_datasheet"] * 1e3,
                bound_sectors_rule="one 32-byte sector a kept pair (two in float32 mode) beside the useful bytes",
                grad_space=f"pair-major {tuple(gspace.shape)} {str(gspace.dtype).replace('torch.', '')}",
-               worst_row_rel_err=e_seg, row_tolerance=SEGSUM_TOL, pairs_kept=kept,
+               worst_row_rel_err=e_seg, row_tolerance=seg_tols[0], norm_tolerance=seg_tols[1], pairs_kept=kept,
                pair_budget=b.dest_of_exp.numel(), bytes=nbytes,
                float32_space_ms=f32_ms,
                float32_space_worst_row_rel_err=e_f32,
                float32_space_bound_ms=(kept * 36 + other) / DEVICE["hbm_bw_datasheet"] * 1e3,
                float32_space_bound_sectors_ms=(kept * 64 + other) / DEVICE["hbm_bw_datasheet"] * 1e3)
     rows.append(row)
-    rows.append(projection_row(True, splats, cam, cfg, counts["project_bwd"], masked=True))
+    rows.append(projection_row(True, splats, cam, cfg, counts["project_bwd"], masked=True, tag=tag))
     return rows
 
 
@@ -2703,19 +3113,27 @@ def phase_host_kernels(splats, cam, dcfg, bgd, wcfg, host_counts):
         audit="0 skipped live pixels, audit output and a second run bit-equal"))
 
     # the wireframe band test, at the wireframe pass's own inputs
+    rows.append(wire_row(splats, cam, wcfg, host_counts["wireframe"]["launches"]["composite_fwd_wire"]
+                         + host_counts["wire_over"]["launches"]["composite_fwd_wire"]))
+    return rows
+
+
+def wire_row(splats, cam, wcfg, launches, tag=""):
+    """The forward's wireframe band test at a wireframe pass's inputs: held
+    to its plain version and audited, its time, the plain version's, its
+    bound.  `tag` is appended to the row's name."""
     wargs, wb = wire._wireframe_inputs(splats, cam, wcfg, LINE_PX)
-    err, used = compare_compositor(wargs, "wireframe frame")
+    err, used = compare_compositor(wargs, f"wireframe frame{tag}")
     ms = cuda_time_ms(lambda: kcomp.composite_splats(*wargs), 10, warmup=2)[0]
     plain_ms, _ = cuda_time_ms(lambda: kcomp.composite_splats_plain(*wargs))
     pc = pair_counts(wargs, used)
-    nbytes = (wargs[0].numel() + wargs[1].numel() + 3 * wb.tile_base.numel() + used.numel()) * 4 + img_bytes
-    rows.append(compositor_row(
-        "composite_fwd_wire", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:245",
-        host_counts["wireframe"]["launches"]["composite_fwd_wire"]
-        + host_counts["wire_over"]["launches"]["composite_fwd_wire"], err, ms, plain_ms, pc, nbytes,
-        "fwd", "wire", variant=f"wireframe band, line_px {LINE_PX}", pairs_binned=int(wb.tile_count.sum()),
-        tiles_stopped_early=int((used < wb.tile_span).sum())))
-    return rows
+    nbytes = (wargs[0].numel() + wargs[1].numel() + 3 * wb.tile_base.numel() + used.numel()) * 4 \
+        + cam.height * cam.width * 16
+    return compositor_row(
+        "composite_fwd_wire" + tag, FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:245", launches, err, ms, plain_ms,
+        pc, nbytes, "fwd", "wire", variant=f"wireframe band, line_px {LINE_PX}",
+        pairs_binned=int(wb.tile_count.sum()), tiles_stopped_early=int((used < wb.tile_span).sum()),
+        dropped_pairs=int(wb.dropped_pairs))
 
 
 def phase_probe_kernels(calib, by_probe, path_idx):
@@ -2769,6 +3187,68 @@ def phase_probe_kernels(calib, by_probe, path_idx):
     return rows
 
 
+def scan_row(kind, length, g, launches, tag="", **extra):
+    """scan_i32 of `kind` at `length`: bit-equal to its plain version on
+    rotating random inputs, its time (a caller's), its device time and
+    operations from a trace, the plain version's and the library call's
+    times, the bytes bound.  `tag` is appended to the row's name."""
+    # Rotating inputs larger than the 50 MB L2 together, so every call
+    # reads from device memory, which is what the bound counts.
+    nbuf = max(2, (96 << 20) // (4 * length) + 1)
+    if kind == "add":
+        xs = [torch.randint(0, 8, (length,), generator=g, device=DEV, dtype=torch.int32) for _ in range(nbuf)]
+    else:
+        xs = [torch.randint(-(2**31), 2**31 - 1, (length,), generator=g, device=DEV,
+                            dtype=torch.int64).to(torch.int32) for _ in range(nbuf)]
+    got = kscan.scan_i32(xs[0], kind)
+    want = kscan.scan_i32_plain(xs[0], kind)
+    err = int((got.long() - want.long()).abs().max())
+    if err != 0:
+        fail(f"scan_i32[{kind}]{tag} differs from its plain version at length {length}")
+    lib = (lambda x: torch.cumsum(x, 0, dtype=torch.int32)) if kind == "add" else (lambda x: torch.cummax(x, 0).values)
+    nxt = itertools.cycle(xs).__next__
+    ms = cuda_time_ms(lambda: kscan.scan_i32(nxt(), kind), 50, warmup=2)[0]
+    plain_ms = cuda_time_ms(lambda: kscan.scan_i32_plain(nxt(), kind), 50, warmup=2)[0]
+    library_ms = cuda_time_ms(lambda: lib(nxt()), 50, warmup=2)[0]
+    # One call under the profiler: what it enqueues on the device, and
+    # the device time alone (ms above is a caller's: host launch
+    # included, back to back); the same for the library call.
+    traced = traced_calls(lambda: kscan.scan_i32(nxt(), kind), 20)
+    lib_traced = traced_calls(lambda: lib(nxt()), 20)
+    row = {"name": f"scan_i32_{kind}{tag}", "route": "cuda", "source": "gsplat_tpu_torch/csrc/scan.cu",
+           "replaces": "gsplat_tpu/ops/pallas/scan.py:130", "launches": launches, **extra, "length": length,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    row.update(bytes_bounds(8.0 * length))
+    row["library_ms"] = library_ms
+    row.update(device_ops_per_call=traced["device_ops_per_call"], trace_sessions=traced["trace_sessions"],
+               device_us_per_call=traced["device_us_per_call"], device_ops=traced["device_op_names"],
+               library_device_ops_per_call=lib_traced["device_ops_per_call"],
+               library_device_us_per_call=lib_traced["device_us_per_call"])
+    if traced["device_ops_per_call"] != 1:
+        fail(f"scan_i32[{kind}]{tag}: one call enqueued {traced['device_ops_per_call']} device operations, not 1")
+    return row
+
+
+def forward_row(splats, cam, cfg, launches, tag="", **extra):
+    """The forward compositor at a path's frame (its first camera): held to
+    its plain version and audited (compare_compositor), its time, the plain
+    version's, its bound.  `tag` is appended to the row's name."""
+    args, b = compositor_inputs(splats, cam, cfg)
+    err, used = compare_compositor(args, f"frame{tag}")
+    ms = cuda_time_ms(lambda: kcomp.composite_splats(*args), 10, warmup=2)[0]
+    plain_ms, _ = cuda_time_ms(lambda: kcomp.composite_splats_plain(*args))
+    # Work this frame's data needs: the live pair positions each tile walked
+    # before it stopped, times 1024 pixels, and every input and output once.
+    pc = pair_counts(args, used)
+    payload, pair_splat = args[0], args[1]
+    nbytes = (payload.numel() + pair_splat.numel() + 3 * b.tile_base.numel()) * 4 \
+        + cam.height * cam.width * 16 + used.numel() * 4
+    return compositor_row(
+        "composite_fwd" + tag, FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:817", launches, err, ms, plain_ms,
+        pc, nbytes, "fwd", "beauty", **extra, pairs_binned=int(b.tile_count.sum()),
+        tiles_stopped_early=int((used < b.tile_span).sum()))
+
+
 def phase_kernels(splats, cam, cfg, counts, graph_counts, train_counts, scene_counts):
     """Each kernel at the main path's shapes: error, times, bound.  The scan
     and forward rows' launches are the main path's frames (eager and
@@ -2779,72 +3259,17 @@ def phase_kernels(splats, cam, cfg, counts, graph_counts, train_counts, scene_co
     g = torch.Generator(device=DEV)
     g.manual_seed(9)
     rows = []
-    for kind, length, replaces in (
-        ("add", n, "gsplat_tpu/ops/pallas/scan.py:130"),
-        ("max", budget, "gsplat_tpu/ops/pallas/scan.py:130"),
-    ):
-        # Rotating inputs larger than the 50 MB L2 together, so every call
-        # reads from device memory, which is what the bound counts.
-        nbuf = max(2, (96 << 20) // (4 * length) + 1)
-        if kind == "add":
-            xs = [torch.randint(0, 8, (length,), generator=g, device=DEV, dtype=torch.int32) for _ in range(nbuf)]
-        else:
-            xs = [torch.randint(-(2**31), 2**31 - 1, (length,), generator=g, device=DEV,
-                                dtype=torch.int64).to(torch.int32) for _ in range(nbuf)]
-        got = kscan.scan_i32(xs[0], kind)
-        want = kscan.scan_i32_plain(xs[0], kind)
-        err = int((got.long() - want.long()).abs().max())
-        if err != 0:
-            fail(f"scan_i32[{kind}] differs from its plain version at length {length}")
-        lib = (lambda x: torch.cumsum(x, 0, dtype=torch.int32)) if kind == "add" else (lambda x: torch.cummax(x, 0).values)
-        nxt = itertools.cycle(xs).__next__
-        ms = cuda_time_ms(lambda: kscan.scan_i32(nxt(), kind), 50, warmup=2)[0]
-        plain_ms = cuda_time_ms(lambda: kscan.scan_i32_plain(nxt(), kind), 50, warmup=2)[0]
-        library_ms = cuda_time_ms(lambda: lib(nxt()), 50, warmup=2)[0]
-        # One call under the profiler: what it enqueues on the device, and
-        # the device time alone (ms above is a caller's: host launch
-        # included, back to back); the same for the library call.
-        traced = traced_calls(lambda: kscan.scan_i32(nxt(), kind), 20)
-        lib_traced = traced_calls(lambda: lib(nxt()), 20)
-        row = {"name": f"scan_i32_{kind}", "route": "cuda", "source": "gsplat_tpu_torch/csrc/scan.cu",
-               "replaces": replaces,
-               "launches": counts[f"scan_i32_{kind}"] + graph_counts[f"scan_i32_{kind}"]
-               + scene_counts[f"scan_i32_{kind}"],
-               "launches_by_path": {"main_path": counts[f"scan_i32_{kind}"],
-                                    "main_path_graph": graph_counts[f"scan_i32_{kind}"],
-                                    "scene_path": scene_counts[f"scan_i32_{kind}"]},
-               "launches_train_path": train_counts[f"scan_i32_{kind}"], "length": length,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        row.update(bytes_bounds(8.0 * length))
-        row["library_ms"] = library_ms
-        row.update(device_ops_per_call=traced["device_ops_per_call"], trace_sessions=traced["trace_sessions"],
-                   device_us_per_call=traced["device_us_per_call"], device_ops=traced["device_op_names"],
-                   library_device_ops_per_call=lib_traced["device_ops_per_call"],
-                   library_device_us_per_call=lib_traced["device_us_per_call"])
-        if traced["device_ops_per_call"] != 1:
-            fail(f"scan_i32[{kind}]: one call enqueued {traced['device_ops_per_call']} device operations, not 1")
-        rows.append(row)
-        del xs
+    for kind, length in (("add", n), ("max", budget)):
+        name = f"scan_i32_{kind}"
+        rows.append(scan_row(kind, length, g, counts[name] + graph_counts[name] + scene_counts[name],
+                             launches_by_path={"main_path": counts[name], "main_path_graph": graph_counts[name],
+                                               "scene_path": scene_counts[name]},
+                             launches_train_path=train_counts[name]))
 
-    args, b = compositor_inputs(splats, cam, cfg)
-    err, used = compare_compositor(args, "main-path frame")
-    ms = cuda_time_ms(lambda: kcomp.composite_splats(*args), 10, warmup=2)[0]
-    plain_ms, _ = cuda_time_ms(lambda: kcomp.composite_splats_plain(*args))
-    # Work this frame's data needs: the live pair positions each tile walked
-    # before it stopped, times 1024 pixels, and every input and output once.
-    pc = pair_counts(args, used)
-    payload, pair_splat = args[0], args[1]
-    nbytes = (payload.numel() + pair_splat.numel() + 3 * b.tile_base.numel()) * 4 \
-        + cam.height * cam.width * 16 + used.numel() * 4
-    rows.append(compositor_row(
-        "composite_fwd", FWD_SRC, "gsplat_tpu/ops/pallas/composite.py:817",
-        counts["composite_fwd"] + graph_counts["composite_fwd"] + scene_counts["composite_fwd"], err, ms, plain_ms,
-        pc, nbytes, "fwd", "beauty",
+    rows.append(forward_row(
+        splats, cam, cfg, counts["composite_fwd"] + graph_counts["composite_fwd"] + scene_counts["composite_fwd"],
         launches_by_path={"main_path": counts["composite_fwd"], "main_path_graph": graph_counts["composite_fwd"],
-                          "scene_path": scene_counts["composite_fwd"]},
-        pairs_binned=int(b.tile_count.sum()),
-        tiles_stopped_early=int((used < b.tile_span).sum())))
-    del args, b, used
+                          "scene_path": scene_counts["composite_fwd"]}))
     rows.append(projection_row(
         False, splats, cam, cfg,
         counts["project_fwd"] + graph_counts["project_fwd"] + scene_counts["project_fwd"],
@@ -2863,17 +3288,17 @@ GLUE_REPLACES = ("none: XLA's fusion of the frame's glue under jax.jit (gsplat_t
 
 
 def glue_row(name, replaces, kernel, plain, library, library_note, nbytes, paths, train_launches, device_ops=1,
-             **extra):
+             tag="", **extra):
     """A frame-glue kernel's row: times, its device time from a trace, its
     bytes bound (the caller has held it to its plain version: bit-equal, so
     max_abs_err 0)."""
     ms = cuda_time_ms(kernel, 50, warmup=3)[0]
     plain_ms = cuda_time_ms(plain, 10, warmup=2)[0]
     library_ms = cuda_time_ms(library, 50, warmup=3)[0] if library is not None else None
-    traced = traced_calls(kernel, 20)
+    traced = traced_calls(kernel, 20, ops_per_call=device_ops)
     if traced["device_ops_per_call"] != device_ops:
-        fail(f"{name}: one call enqueued {traced['device_ops_per_call']} device operations, not {device_ops}")
-    row = {"name": name, "route": "cuda", "source": GLUE_SRC, "replaces": replaces,
+        fail(f"{name}{tag}: one call enqueued {traced['device_ops_per_call']} device operations, not {device_ops}")
+    row = {"name": name + tag, "route": "cuda", "source": GLUE_SRC, "replaces": replaces,
            "launches": sum(c[name] for c in paths.values()), "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms}
     row.update(bytes_bounds(nbytes))
     row.update(library_ms=library_ms, library=library_note, bound_share=row["bound_ms"] / ms,
@@ -2884,9 +3309,10 @@ def glue_row(name, replaces, kernel, plain, library, library_note, nbytes, paths
     return row
 
 
-def glue_rows(splats, cam, cfg, paths, train_counts):
+def glue_rows(splats, cam, cfg, paths, train_counts, tag=""):
     """gather_payload, scatter_payload, mark_owners and expand_pairs at the
-    main path's inputs (its first camera, its tuned budget)."""
+    main path's inputs (its first camera, its tuned budget), or with `tag`
+    (appended to the rows' names) at another path's."""
     n, w, h = splats.count, cam.width, cam.height
     fields = kproj.project_fields(*proj_args(splats, cam, cfg.sh_order, not cfg.soft_cutoff, cfg.only_sh),
                                   payload_dtype=cfg.payload_dtype)
@@ -2897,7 +3323,7 @@ def glue_rows(splats, cam, cfg, paths, train_counts):
     got, want = gather(), gather_plain()
     if not all(same_words(getattr(got.operands, k), getattr(want.operands, k))
                for k in ("counts", "nx", "tile0", "thr_q")) or not same_words(got.payload, want.payload):
-        fail("gather_payload at the main path's inputs differs from its plain version")
+        fail(f"gather_payload at the path's inputs{tag} differs from its plain version")
     live_rows = 15 if cfg.depth_test else 14
     read = n * (8 + 4 * (13 + int(cfg.depth_test)))
     written = got.payload.numel() * 4 + n * 4 * (3 + int(rho_ok))
@@ -2905,7 +3331,7 @@ def glue_rows(splats, cam, cfg, paths, train_counts):
         "gather_payload", GLUE_REPLACES.format("307 _tile_extents; gsplat_tpu/ops/pallas/composite.py:976-984"),
         gather, gather_plain, lambda: fields[:live_rows].index_select(1, order),
         "index_select of the live rows into depth order (the gather alone, no packing or extents)",
-        read + written, paths, train_counts["gather_payload"], splats=n, payload_dtype=cfg.payload_dtype,
+        read + written, paths, train_counts["gather_payload"], tag=tag, splats=n, payload_dtype=cfg.payload_dtype,
         bytes_read=read, bytes_written=written)]
     ops = got.operands
     del got, want
@@ -2915,7 +3341,7 @@ def glue_rows(splats, cam, cfg, paths, train_counts):
     g.manual_seed(14)
     d_payload = torch.randn((10, n), generator=g, device=DEV)
     if not same_words(kglue.scatter_payload(d_payload, order), kglue.scatter_payload_plain(d_payload, order)):
-        fail("scatter_payload at the main path's inputs differs from its plain version")
+        fail(f"scatter_payload at the path's inputs{tag} differs from its plain version")
     lib_out = torch.zeros((10, n), device=DEV)
     read, written = n * (8 + 40), n * 64
     rows.append(glue_row(
@@ -2924,7 +3350,8 @@ def glue_rows(splats, cam, cfg, paths, train_counts):
         lambda: kglue.scatter_payload(d_payload, order), lambda: kglue.scatter_payload_plain(d_payload, order),
         lambda: lib_out.index_copy_(1, order, d_payload),
         "index_copy_ of the 10 rows into storage order (the 6 zero rows not written)", read + written,
-        {"train_path": train_counts}, train_counts["scatter_payload"], splats=n, bytes_read=read, bytes_written=written))
+        {"train_path": train_counts}, train_counts["scatter_payload"], tag=tag, splats=n, bytes_read=read,
+        bytes_written=written))
     del d_payload, lib_out
     budget = cfg.pair_budget(n)
     nty, ntx = binning.tile_grid(w, h, cfg.tile_h, cfg.tile_w)
@@ -2933,7 +3360,7 @@ def glue_rows(splats, cam, cfg, paths, train_counts):
     offs, marks = kglue.mark_owners(*marks_args)
     want_offs, want_marks = kglue.mark_owners_plain(*marks_args)
     if not same_words(offs, want_offs) or not same_words(marks, want_marks):
-        fail("mark_owners at the main path's inputs differs from its plain version")
+        fail(f"mark_owners at the path's inputs{tag} differs from its plain version")
     del want_offs, want_marks
     lib_marks = torch.zeros((budget + 1,), dtype=torch.int32, device=DEV)
     lib_index = torch.clamp(offs, max=budget).long()
@@ -2943,7 +3370,8 @@ def glue_rows(splats, cam, cfg, paths, train_counts):
         lambda: kglue.mark_owners(*marks_args), lambda: kglue.mark_owners_plain(*marks_args),
         lambda: lib_marks.scatter_reduce_(0, lib_index, lib_ranks, "amax"),
         "scatter_reduce_ (amax) of the ranks + 1 at the clamped offsets (offsets and indices given)",
-        n * 12 + (budget + 1) * 4, paths, train_counts["mark_owners"], device_ops=2, splats=n, pair_slots=budget,
+        n * 12 + (budget + 1) * 4, paths, train_counts["mark_owners"], device_ops=2, tag=tag, splats=n,
+        pair_slots=budget,
         note="a call is two kernels: the marks' zeroing (budget + 1 words, in the bytes bound) and the marks "
              "(12 bytes a rank)"))
     del lib_marks, lib_index, lib_ranks
@@ -2951,18 +3379,21 @@ def glue_rows(splats, cam, cfg, paths, train_counts):
     args = (smax, cum, offs, ops, budget, nty * ntx, ntx, cfg, 0, 0, sat_cull, rho_ok, False)
     a, b = kglue.expand_pairs(*args), kglue.expand_pairs_plain(*args)
     if not same_words(a.key, b.key) or not same_words(a.tile, b.tile) or not same_words(a.rank, b.rank):
-        fail("expand_pairs at the main path's inputs differs from its plain version")
+        fail(f"expand_pairs at the path's inputs{tag} differs from its plain version")
     owners = int(torch.unique(torch.clamp(smax - 1, 0, n - 1)).numel())
     per_owner = 4 * (3 + int(rho_ok)) + 24 * int(sat_cull)
     total = int(cum[-1])
-    culled = int(((a.key >> kglue.rank_bits(n)) == nty * ntx).sum()) - max(budget - total, 0) if a.key is not None \
-        else None
+    tile = a.tile if a.key is None else a.key >> kglue.rank_bits(n)
+    culled = int((tile == nty * ntx).sum()) - max(budget - total, 0)
+    del tile
     rows.append(glue_row(
         "expand_pairs", GLUE_REPLACES.format("386-539, bin_splats' expansion, SAT cull and key"),
         lambda: kglue.expand_pairs(*args), lambda: kglue.expand_pairs_plain(*args), None,
-        "none: no single PyTorch call computes the expansion", budget * 8 + owners * per_owner, paths,
-        train_counts["expand_pairs"], pair_slots=budget, pairs=total, owning_ranks=owners,
-        pairs_culled_by_sat=culled, sat_cull=sat_cull, rho_ok=rho_ok))
+        "none: no single PyTorch call computes the expansion",
+        budget * (8 if a.key is not None else 12) + owners * per_owner, paths,
+        train_counts["expand_pairs"], tag=tag, pair_slots=budget, pairs=total, owning_ranks=owners,
+        pairs_culled_by_sat=culled, sat_cull=sat_cull, rho_ok=rho_ok,
+        key_form="packed" if a.key is not None else "wide"))
     return rows
 
 
@@ -3535,7 +3966,8 @@ def main():
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--steps", type=int, default=5, help="training steps after warm-up")
-    ap.add_argument("--stop-after", choices=("build", "checks", "reference", "sharded", "host_scene", "scene"),
+    ap.add_argument("--stop-after", choices=("build", "checks", "reference", "sharded", "trained", "envelope",
+                                             "host_scene", "scene"),
                     default=None,
                     help="a short run: stop after this phase (prints no result line)")
     ap.add_argument("--verbose-build", action="store_true",
@@ -3599,6 +4031,14 @@ def main():
     with phase("train_stages"):
         phase_train_stages(splats, cams[0], train_cfg, target)
     del target
+    with phase("trained_path"):
+        large_rows = phase_trained_path(args.width, args.height, args.steps)
+    if args.stop_after == "trained":
+        return
+    with phase("envelope_path"):
+        large_rows += phase_envelope_path(args.width, args.height)
+    if args.stop_after == "envelope":
+        return
     with phase("host_scene_path"):
         dcfg, bgd, wcfg, host = phase_host_scene(splats, cams, args.frames, cfg)
     if args.stop_after == "host_scene":
@@ -3625,9 +4065,10 @@ def main():
         rows += phase_host_kernels(splats, cams[0], dcfg, bgd, wcfg, host)
         rows += phase_probe_kernels(calib, by_probe, path_idx)
         rows += phase_sharded_kernels(sharded, sharded_train)
+        rows += large_rows
     emit("done", seconds=round(time.time() - t0, 1),
          phase_seconds={name: round(v["max_ms"] / 1e3, 1) for name, v in timer.summary().items()})
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": priced_rows(rows)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}),
