@@ -136,7 +136,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              replay's trace holding 4 scans, 1 projection forward (payload
              form) and 1 backward (masked), 1 gather_payload, 1
              scatter_payload, 1 mark_owners, 1 expand_pairs, 1 forward, 1
-             backward and 1 segment sum;
+             backward, 1 segment sum and 1 Adam update (csrc/adam.cu);
              median_step_ms (captured) beside
              median_eager_step_ms.
   train_stages  one training step taken apart (where a step's time goes).
@@ -292,6 +292,7 @@ from gsplat_tpu_torch.ops import binning
 from gsplat_tpu_torch.ops import wireframe as wire
 from gsplat_tpu_torch.ops import kernels as kernel_table
 from gsplat_tpu_torch.ops.kernels import _build
+from gsplat_tpu_torch.ops.kernels import adam as kadam
 from gsplat_tpu_torch.ops.kernels import frame_glue as kglue
 from gsplat_tpu_torch.ops.kernels import composite as kcomp
 from gsplat_tpu_torch.ops.kernels import probes as kprobes
@@ -475,6 +476,12 @@ def gradient_counts(calls):
                          composite_fwd=calls, composite_fwd_checkpoint=calls, composite_bwd=calls, segsum=calls,
                          project_fwd=calls, project_fwd_payload=calls, project_bwd=calls, gather_payload=calls,
                          scatter_payload=calls, expand_pairs=calls, mark_owners=calls)
+
+
+def step_counts(steps):
+    """The launch counts of `steps` training steps: a gradient frame's
+    kernels and one Adam update each."""
+    return dict(gradient_counts(steps), adam=steps)
 
 
 def backward_inputs(splats, cam, cfg, seed):
@@ -1834,7 +1841,7 @@ def train_run(splats, cam, cfg, steps):
     warm, losses, times, counts, peak = timed_steps(step, params, target, steps)
     reserved = torch.cuda.memory_reserved()
 
-    want = gradient_counts(steps)
+    want = step_counts(steps)
     if counts != want:
         fail(f"train path launch counts {counts}, expected {want}")
     if not all(math.isfinite(x) for x in warm + losses):
@@ -2691,7 +2698,7 @@ def phase_ply_fit(tmp, steps=120):
         losses.append(float(loss))
     counts = read_counters()
     end = view0_psnr()
-    want = gradient_counts(steps)
+    want = step_counts(steps)
     if counts != want:
         fail(f"ply fit: launch counts {counts}, expected {want}")
     if not (math.isfinite(end) and end > start + 3.0 and end > 26.0):
@@ -3071,7 +3078,120 @@ def phase_train_kernels(splats, cam, cfg, counts, tag="", d_out=None, seg_tols=(
                float32_space_bound_sectors_ms=(kept * 64 + other) / DEVICE["hbm_bw_datasheet"] * 1e3)
     rows.append(row)
     rows.append(projection_row(True, splats, cam, cfg, counts["project_bwd"], masked=True, tag=tag))
+    rows.append(adam_row(n, counts.get("adam", 0), tag=tag))
     return rows
+
+
+# The Adam kernel against its plain version and torch's capturable path (the
+# same float32 formula; tests/test_torch_adam_cuda.py): each moment within 4
+# ulp of itself, each parameter within 1 ulp of itself plus 4 ulp of its
+# leaf's rate for every step taken.
+ADAM_STEPS = 4
+
+
+def adam_row(n, launches, tag=""):
+    """default_optimizer's step (the port's kernel) over the six leaves of
+    n splats against the plain version and torch.optim.Adam(capturable=True)
+    from the same start and gradients (three steps, the state zeroed, one
+    more), then timed beside the plain version and torch's two library
+    paths, the multi-tensor capturable step and fused=True (never called by
+    the port).  Bytes: 28 an element (four streams read, three written)."""
+    shapes = {"pos": (3, n), "quat": (4, n), "log_scale": (3, n), "logit_opacity": (n,), "color": (3, n),
+              "sh": (45, n)}
+    g = torch.Generator(device=DEV)
+    g.manual_seed(13)
+    start = {f: torch.randn(s, generator=g, device=DEV) for f, s in shapes.items()}
+
+    def fresh():
+        return gt.SplatParams(**{f: t.clone().requires_grad_(True) for f, t in start.items()})
+
+    def set_grads(params, k):
+        gk = torch.Generator(device=DEV)
+        gk.manual_seed(100 + k)
+        for f, t in params.as_dict().items():
+            t.grad = torch.randn(t.shape, generator=gk, device=DEV)
+
+    def zero_state(opt):
+        for st in opt.state.values():
+            for t in st.values():
+                t.zero_()
+
+    port = fresh()
+    opt = gt.default_optimizer(port)
+    rates = [grp["lr"] for grp in opt.param_groups]
+    ref = fresh()
+    ref_opt = torch.optim.Adam([{"params": [t], "lr": lr} for t, lr in zip(ref.as_dict().values(), rates)],
+                               betas=(0.9, 0.999), eps=1e-8, capturable=True, foreach=True)
+    plain = fresh()
+    plain_state = {f: (torch.zeros_like(t), torch.zeros_like(t), torch.zeros((), device=DEV))
+                   for f, t in plain.as_dict().items()}
+    hyper = [(lr, 0.9, 0.999, 1e-8) for lr in rates]
+
+    def plain_step():
+        leaves = list(plain.as_dict().values())
+        kadam.fused_adam_plain([t.detach() for t in leaves], [t.grad for t in leaves],
+                               *[[plain_state[f][i] for f in plain_state] for i in range(3)], hyper)
+
+    before = kadam.launches
+    for k in range(ADAM_STEPS):
+        if k == ADAM_STEPS - 1:
+            zero_state(opt)
+            zero_state(ref_opt)
+            for st in plain_state.values():
+                for t in st:
+                    t.zero_()
+        for params in (port, ref, plain):
+            set_grads(params, k)
+        opt.step()
+        ref_opt.step()
+        plain_step()
+    torch.cuda.synchronize()
+    if kadam.launches != before + ADAM_STEPS:
+        fail(f"adam{tag}: {kadam.launches - before} kernel launches over {ADAM_STEPS} steps")
+    worst = {"torch": 0.0, "plain": 0.0}
+    max_abs = 0.0
+    for i, f in enumerate(shapes):
+        p = getattr(port, f)
+        st = opt.state[p]
+        if float(st["step"]) != 1.0:
+            fail(f"adam{tag}: leaf {f} step {float(st['step'])} after the zeroed state's one step")
+        wants = {"torch": (getattr(ref, f), ref_opt.state[getattr(ref, f)]["exp_avg"],
+                           ref_opt.state[getattr(ref, f)]["exp_avg_sq"]),
+                 "plain": (getattr(plain, f), plain_state[f][0], plain_state[f][1])}
+        for name, want in wants.items():
+            for got_t, want_t, lr in zip((p, st["exp_avg"], st["exp_avg_sq"]), want, (rates[i], None, None)):
+                got_t, want_t = got_t.detach(), want_t.detach()
+                ulp = 2.0 ** -23
+                tol = 4 * ulp * want_t.abs() if lr is None else ADAM_STEPS * (ulp * want_t.abs() + 4 * ulp * lr)
+                worst[name] = max(worst[name], float(((got_t - want_t).abs() / (tol + 1e-38)).max()))
+                if name == "torch":
+                    max_abs = max(max_abs, float((got_t - want_t).abs().max()))
+    if max(worst.values()) > 1.0:
+        fail(f"adam{tag}: beyond the tolerance (ADAM_STEPS), worst share of it {worst}")
+    del plain, plain_state
+    ms = cuda_time_ms(lambda: opt.step(), 20, warmup=3)[0]
+    lib_ms = cuda_time_ms(lambda: ref_opt.step(), 10, warmup=2)[0]
+    del ref_opt
+    fused_opt = torch.optim.Adam([{"params": [t], "lr": lr} for t, lr in zip(ref.as_dict().values(), rates)],
+                                 betas=(0.9, 0.999), eps=1e-8, capturable=True, fused=True)
+    fused_ms = cuda_time_ms(lambda: fused_opt.step(), 10, warmup=2)[0]
+    del fused_opt
+    plain_ms = cuda_time_ms(lambda: kadam.fused_adam_plain(
+        [t.detach() for t in port.as_dict().values()], [t.grad for t in port.as_dict().values()],
+        *[[opt.state[t][k] for t in port.as_dict().values()] for k in ("exp_avg", "exp_avg_sq", "step")],
+        hyper), 5, warmup=1)[0]
+    elements = 59 * n
+    row = {"name": "adam" + tag, "route": "cuda", "source": "gsplat_tpu_torch/csrc/adam.cu",
+           "replaces": "none: optax.adam under jax.jit (XLA's fusion); on the card torch.optim.Adam(capturable)",
+           "launches": launches, "max_abs_err": max_abs, "worst_ulp_share": worst, "ms": ms, "plain_ms": plain_ms,
+           "elements": elements, "bytes": 28 * elements}
+    row.update(bytes_bounds(28 * elements))
+    row.update(library_ms=lib_ms, library="torch.optim.Adam(capturable=True, foreach=True).step",
+               library_fused_ms=fused_ms, library_fused="torch.optim.Adam(capturable=True, fused=True).step",
+               bound_share=row["bound_ms"] / ms)
+    del port, opt, ref
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_host_kernels(splats, cam, dcfg, bgd, wcfg, host_counts):
@@ -3716,7 +3836,7 @@ def rank_sharded_train(rank, world, n_splats, width, height, steps):
     want = expect_counts(scan_i32_add=steps, scan_i32_max=3 * steps, scan_i32=4 * steps, composite_fwd=steps,
                          composite_fwd_checkpoint=steps, composite_fwd_strided=strided, composite_bwd=steps,
                          composite_bwd_strided=strided, segsum=steps, project_fwd=steps, project_bwd=steps,
-                         expand_pairs=steps, mark_owners=steps)
+                         expand_pairs=steps, mark_owners=steps, adam=steps)
     if counts != want:
         fail(f"sharded training, rank {rank}: launch counts {counts}, expected {want}")
     want_loss = sum(ref_losses) / dp

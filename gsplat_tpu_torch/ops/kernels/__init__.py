@@ -17,7 +17,7 @@ import sys
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 # Every wrapper module, imported before the table is read so that it is whole.
-_MODULES = ("scan", "composite", "segsum", "projection", "frame_glue", "probes")
+_MODULES = ("scan", "composite", "segsum", "projection", "frame_glue", "probes", "adam")
 
 
 @dataclasses.dataclass(frozen=True)

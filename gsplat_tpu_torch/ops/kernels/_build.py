@@ -40,7 +40,8 @@ NVCC_FLAGS = (
 # rounded ATen ops, its backward against the same chain's analytic VJP, and
 # so is the frame glue's float math (the exact-coverage cull).  The
 # probes keep nvcc's defaults: their FMA chain is meant to contract, and their
-# separately rounded chain is written with intrinsics that never do.
+# separately rounded chain is written with intrinsics that never do.  Adam
+# follows the rounding of torch's capturable update, whose FMAs it writes out.
 EXTRA_FLAGS = {
     "composite_fwd": ("-fmad=false",),
     "composite_bwd": ("-fmad=false",),
@@ -49,6 +50,7 @@ EXTRA_FLAGS = {
     "segsum": (),
     "scan": (),
     "probes": (),
+    "adam": ("-fmad=false",),
 }
 
 _lock = threading.Lock()

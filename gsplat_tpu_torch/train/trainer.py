@@ -28,17 +28,21 @@ from .. import graphs
 from ..ops.binning import RenderStats, report_stats
 from ..render import render
 from ..utils.config import RenderConfig
+from .adam import Adam
 from .loss import render_loss, ssim_strip_map
 from .params import SplatParams, _leaves, splats_from_params
 
 
-def default_optimizer(params: SplatParams, lr_pos: float = 1.6e-4) -> torch.optim.Adam:
+def default_optimizer(params: SplatParams, lr_pos: float = 1.6e-4) -> Adam:
     """Adam with one parameter group per field, at the per-parameter learning
     rates of standard 3DGS practice (β = (0.9, 0.999), ε = 1e-8, as
-    ``optax.adam``).  On CUDA parameters it is ``capturable`` (its step
-    count and bias correction live on the device, in float32 as in
-    ``optax.adam``), so that :func:`make_train_step` can capture its update;
-    PyTorch takes no ``capturable`` Adam on CPU parameters."""
+    ``optax.adam``): the port's :class:`~gsplat_tpu_torch.train.adam.Adam`,
+    whose step on CUDA parameters is one launch of its kernel over the six
+    leaves.  On CUDA parameters it is ``capturable`` (its step count and
+    bias correction live on the device, in float32 as in ``optax.adam``),
+    so that :func:`make_train_step` can capture its update; PyTorch takes no
+    ``capturable`` Adam on CPU parameters, where the step is
+    ``torch.optim.Adam``'s."""
     rates = {
         "pos": lr_pos,
         "quat": 1e-3,
@@ -51,7 +55,7 @@ def default_optimizer(params: SplatParams, lr_pos: float = 1.6e-4) -> torch.opti
         {"params": [tensor], "lr": rates[name], "name": name}
         for name, tensor in params.as_dict().items()
     ]
-    return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8, capturable=params.device.type == "cuda")
+    return Adam(groups, betas=(0.9, 0.999), eps=1e-8, capturable=params.device.type == "cuda")
 
 
 def _require_capturable(optimizer: torch.optim.Optimizer) -> None:
